@@ -1,0 +1,119 @@
+"""Per-case inference pipeline: N4 -> U-Net sweep -> 3 mm spark removal ->
+brain-FOV mask -> GIF preview, with the artifact layout and resume
+semantics of ``deepwmh_tpu.pipeline.inference``.
+
+A fresh case (no artifacts yet) runs the whole device pipeline in one call
+(``SlidingWindowPredictor.predict_case_full``). On one card every fresh
+case takes that path: the JAX package diverts only volumes its multi-device
+N4 would shard. A partially computed case runs stage by stage, probing each
+artifact with ``try_load_nifti``, so a rerun resumes where it stopped.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from deepwmh_tpu_torch.core import nifti
+from deepwmh_tpu_torch.core.artifacts import join_path, mkdir
+from deepwmh_tpu_torch.ops.brain import brain_extract
+from deepwmh_tpu_torch.ops.components import remove_3mm_sparks
+from deepwmh_tpu_torch.ops.n4 import n4_bias_correction
+
+
+def make_output_folders(output_folder):
+    """Create the output layout; returns a dict of the five folders."""
+    out = mkdir(output_folder)
+    seg_folder = mkdir(join_path(out, "002_Segmentations"))
+    return {
+        "images": mkdir(join_path(out, "001_Preprocessed_Images")),
+        "raw": mkdir(join_path(seg_folder, "001_raw")),
+        "post_3mm": mkdir(join_path(seg_folder, "002_postproc_3mm")),
+        "post_fov": mkdir(join_path(seg_folder, "003_postproc_fov")),
+        "previews": mkdir(join_path(out, "003_Previews")),
+    }
+
+
+def _numpy(t):
+    return t.cpu().numpy()
+
+
+def _render_preview(folders, case, raw_data, fov_data, image_path=None, seg_path=None):
+    """Best-effort GIF preview: a rendering error (or a host without PIL)
+    never fails a case whose segmentation artifacts are on disk.
+    raw_data/fov_data may be None; they are then loaded from
+    image_path/seg_path, and only if the GIF is missing."""
+    from deepwmh_tpu_torch.eval.preview import nii_as_gif, nii_slice_range, try_load_gif
+
+    out_gif = join_path(folders["previews"], "%s.gif" % case)
+    try:
+        if not try_load_gif(out_gif):
+            data = raw_data if raw_data is not None else nifti.load_nifti_simple(image_path)
+            seg = fov_data if fov_data is not None else nifti.load_nifti_simple(seg_path)
+            s0, s1 = nii_slice_range(data, axis="axial")
+            nii_as_gif(data, out_gif, axis="axial", lesion_mask=seg,
+                       side_by_side=True, slice_range=(s0, s1))
+    except Exception as e:
+        print("warning: preview rendering failed for %s: %r" % (case, e), flush=True)
+
+
+@torch.inference_mode()
+def predict_one_case(predictor, case, image_path, folders, skip_bfc: bool = False,
+                     make_previews: bool = True):
+    """One case through the full inference path with a warm predictor;
+    every artifact is loadability-probed so re-running resumes. Returns the
+    path of the FOV-masked segmentation."""
+    dev = predictor.device
+    pre_path = join_path(folders["images"], "%s_0000.nii.gz" % case)
+    raw_seg = join_path(folders["raw"], "%s.nii.gz" % case)
+    seg_3mm = join_path(folders["post_3mm"], "%s.nii.gz" % case)
+    seg_fov = join_path(folders["post_fov"], "%s.nii.gz" % case)
+
+    raw_data = None
+    fov_data = None
+    fused = not any(
+        nifti.try_load_nifti(p) for p in (pre_path, raw_seg, seg_3mm, seg_fov)
+    )
+    if fused:
+        raw_data, hdr = nifti.load_nifti(image_path)
+        spacing = [float(abs(z)) for z in hdr.zooms[:3]]
+        pre, seg, s3, fov, _fg = predictor.predict_case_full(
+            raw_data, spacing, apply_n4=not skip_bfc
+        )
+        fov_data = _numpy(fov)
+        nifti.save_nifti(_numpy(pre), hdr, pre_path)
+        nifti.save_nifti(_numpy(seg), hdr, raw_seg)
+        nifti.save_nifti(_numpy(s3), hdr, seg_3mm)
+        nifti.save_nifti(fov_data, hdr, seg_fov)
+    else:
+        # stage-by-stage path: resume granularity = one artifact
+        if not nifti.try_load_nifti(pre_path):
+            raw_data, hdr = nifti.load_nifti(image_path)
+            if skip_bfc:
+                nifti.save_nifti(raw_data, hdr, pre_path)
+            else:
+                corrected = n4_bias_correction(torch.from_numpy(np.array(raw_data)).to(dev))
+                nifti.save_nifti(_numpy(corrected), hdr, pre_path)
+
+        if not nifti.try_load_nifti(raw_seg):
+            data, hdr = nifti.load_nifti(pre_path)
+            seg, _fg = predictor.predict_case(data, nifti.get_nifti_pixdim(pre_path))
+            nifti.save_nifti(_numpy(seg), hdr, raw_seg)
+
+        if not nifti.try_load_nifti(seg_3mm):
+            seg, hdr = nifti.load_nifti(raw_seg)
+            spacing = nifti.get_nifti_pixdim(raw_seg)
+            seg_pp = remove_3mm_sparks(torch.from_numpy(np.array(seg)).to(dev), spacing)
+            nifti.save_nifti(_numpy(seg_pp), hdr, seg_3mm)
+
+        if not nifti.try_load_nifti(seg_fov):
+            flair, hdr = nifti.load_nifti(pre_path)
+            spacing = tuple(nifti.get_nifti_pixdim(pre_path))
+            mask = _numpy(brain_extract(torch.from_numpy(np.array(flair)).to(dev), spacing))
+            seg = nifti.load_nifti_simple(seg_3mm)
+            nifti.save_nifti(((seg * mask) > 0.5).astype(np.float32), hdr, seg_fov)
+
+    if make_previews:
+        _render_preview(folders, case, raw_data, fov_data,
+                        image_path=image_path, seg_path=seg_fov)
+    return seg_fov

@@ -1,0 +1,260 @@
+"""3D U-Net inference: whole-volume mirror TTA by default, the Gaussian
+half-overlap patch sweep above ``FULLVOL_MAX_VOXELS`` (port of
+``deepwmh_tpu.unet.infer``).
+
+The two modes give different outputs (whole-volume instance-norm statistics
+versus per-patch ones, no overlap averaging), so the routing threshold is
+the JAX package's, kept for parity. Mirror TTA averages the f32 softmax over
+the 8 axis-flip combinations. Probabilities are returned in the JAX layout
+[D, H, W, C].
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+
+import numpy as np
+import torch
+
+from deepwmh_tpu_torch.device import resolve_device
+from deepwmh_tpu_torch.ops.brain import brain_extract
+from deepwmh_tpu_torch.ops.components import remove_3mm_sparks
+from deepwmh_tpu_torch.ops.n4 import n4_bias_correction
+from deepwmh_tpu_torch.unet.preprocess import (
+    pad_to,
+    padded_shape,
+    preprocess_case,
+    resample_to_shape,
+)
+
+POS_BUCKET = 8
+ALL_FLIPS = tuple(itertools.product((False, True), repeat=3))
+NO_FLIPS = ((False, False, False),)
+# above this many padded voxels the patch sweep takes over (the JAX
+# package's threshold; the two modes differ numerically)
+FULLVOL_MAX_VOXELS = 16_000_000
+
+
+def gaussian_importance_map(patch_size, sigma_scale: float = 1.0 / 8.0):
+    """Separable Gaussian bump centred in the patch, max-normalised to 1 and
+    floored at 1e-4 (the nnU-Net importance map), f32 [d, h, w]."""
+    gs = []
+    for s in patch_size:
+        c = (s - 1) / 2.0
+        sigma = max(s * sigma_scale, 1e-3)
+        x = np.arange(s, dtype=np.float64)
+        gs.append(np.exp(-0.5 * ((x - c) / sigma) ** 2))
+    g = gs[0][:, None, None] * gs[1][None, :, None] * gs[2][None, None, :]
+    g = np.maximum(g / g.max(), 1e-4)
+    return torch.from_numpy(g.astype(np.float32))
+
+
+def compute_steps(image_size, patch_size, step_fraction: float = 0.5):
+    """Evenly spaced patch start positions per axis (nnU-Net step rule)."""
+    steps = []
+    for size, patch in zip(image_size, patch_size):
+        size, patch = int(size), int(patch)
+        if size <= patch:
+            steps.append([0])
+            continue
+        target = patch * step_fraction
+        num = int(math.ceil((size - patch) / target)) + 1
+        actual = (size - patch) / max(num - 1, 1)
+        steps.append([int(round(i * actual)) for i in range(num)])
+    return steps
+
+
+def patch_positions(image_size, patch_size, step_fraction: float = 0.5):
+    """All patch start positions (int32 [P, 3]) and their weights (f32
+    [P]), padded to a POS_BUCKET multiple by repeating the last position
+    with weight 0, as the JAX sweep buckets them."""
+    steps = compute_steps(image_size, patch_size, step_fraction)
+    pos = np.array(list(itertools.product(*steps)), dtype=np.int32)
+    n_real = len(pos)
+    bucket = int(math.ceil(n_real / POS_BUCKET) * POS_BUCKET)
+    if bucket > n_real:
+        pos = np.concatenate([pos, np.repeat(pos[-1:], bucket - n_real, axis=0)])
+    w = np.zeros(bucket, np.float32)
+    w[:n_real] = 1.0
+    return pos, w
+
+
+def _flip_axes(flip):
+    return tuple(a for a, f in enumerate(flip) if f)
+
+
+def flip_forward(model, volume, flip):
+    """One TTA forward of [D,H,W]: flip, batch-1 forward, f32 softmax,
+    flip back. Returns [D, H, W, C]."""
+    axes = _flip_axes(flip)
+    v = volume.flip(axes) if axes else volume
+    logits = model(v[None, None])
+    p = torch.softmax(logits[0].float(), dim=0).permute(1, 2, 3, 0)
+    return p.flip(axes) if axes else p
+
+
+def fullvol_tta(model, volume, num_classes: int, flips):
+    """Whole-volume TTA: the mean softmax over ``flips`` [D, H, W, C]."""
+    acc = torch.zeros(tuple(volume.shape) + (num_classes,), dtype=torch.float32,
+                      device=volume.device)
+    for flip in flips:
+        acc = acc + flip_forward(model, volume, flip)
+    return acc / len(flips)
+
+
+def _patch_forward(model, patch, flips):
+    """All flips of one patch as one batched forward; mean softmax
+    [d, h, w, C]."""
+    xs = []
+    for flip in flips:
+        axes = _flip_axes(flip)
+        xs.append(patch.flip(axes) if axes else patch)
+    logits = model(torch.stack(xs)[:, None])
+    probs = torch.softmax(logits.float(), dim=1)
+    total = 0.0
+    for i, flip in enumerate(flips):
+        axes = _flip_axes(flip)
+        p = probs[i].permute(1, 2, 3, 0)
+        total = total + (p.flip(axes) if axes else p)
+    return total / len(flips)
+
+
+def accumulate_patches(model, volume, positions, pos_weights, gauss, patch_size,
+                       num_classes: int, flips):
+    """The patch sweep over padded [D,H,W]: UN-normalised Gaussian-weighted
+    accumulators (acc [D,H,W,C], wt [D,H,W]). The binary case accumulates
+    only the fg channel and rebuilds bg = wt - fg at the end. Zero-weight
+    positions contribute nothing and are skipped."""
+    D, H, W = volume.shape
+    fg_only = num_classes == 2
+    dev = volume.device
+    acc = torch.zeros((D, H, W) if fg_only else (D, H, W, num_classes),
+                      dtype=torch.float32, device=dev)
+    wt = torch.zeros((D, H, W), dtype=torch.float32, device=dev)
+    for pos, w in zip(np.asarray(positions).tolist(), np.asarray(pos_weights).tolist()):
+        if w <= 0:
+            continue
+        sl = tuple(slice(p, p + s) for p, s in zip(pos, patch_size))
+        probs = _patch_forward(model, volume[sl], flips)
+        g = gauss * w
+        if fg_only:
+            acc[sl] = acc[sl] + g * probs[..., 1]
+        else:
+            acc[sl] = acc[sl] + g[..., None] * probs
+        wt[sl] = wt[sl] + g
+    if fg_only:
+        acc = torch.stack([wt - acc, acc], dim=-1)
+    return acc, wt
+
+
+def fullvol_shape(shape, plan):
+    """Pad each axis up to a multiple of the network's total stride."""
+    strides = [1, 1, 1]
+    for pk in plan.pool_kernels:
+        for a in range(3):
+            strides[a] *= int(pk[a])
+    return tuple(int(-(-int(s) // st) * st) for s, st in zip(shape, strides))
+
+
+def use_fullvol(mode: str, res_shape, plan) -> bool:
+    """'patch' forces the sweep; 'fullvol' forces whole-volume (raising
+    above FULLVOL_MAX_VOXELS); 'auto' picks whole-volume when it fits."""
+    if mode == "patch":
+        return False
+    vox = int(np.prod(fullvol_shape(res_shape, plan)))
+    if mode == "fullvol":
+        if vox > FULLVOL_MAX_VOXELS:
+            raise ValueError(
+                "volume %s exceeds FULLVOL_MAX_VOXELS; use mode='auto'" % (res_shape,))
+        return True
+    return vox <= FULLVOL_MAX_VOXELS
+
+
+class SlidingWindowPredictor:
+    """The user-facing predictor: owns the model on its device.
+
+    mode: 'auto' (default) runs whole-volume inference when the padded
+    volume fits (FULLVOL_MAX_VOXELS) and the Gaussian patch sweep above
+    that; 'patch' / 'fullvol' force one. ``device``: CUDA by default; the
+    CPU only when asked for."""
+
+    def __init__(self, model, plan, tta: bool = True, step_fraction: float = 0.5,
+                 mode: str = "auto", device=None):
+        if int(plan.num_classes) != 2:
+            # the case pipeline (fg>0.5 threshold, spark removal, FOV mask)
+            # is binary-segmentation semantics
+            raise ValueError(
+                "case inference is binary (background+lesion); plan has "
+                "num_classes=%d" % plan.num_classes)
+        self.device = resolve_device(device)
+        self.model = model.to(self.device, memory_format=torch.channels_last_3d).eval()
+        self.plan = plan
+        self.tta = tta
+        self.step_fraction = step_fraction
+        self.mode = mode
+        self.patch_size = tuple(int(p) for p in plan.patch_size)
+        self.gauss = gaussian_importance_map(self.patch_size).to(self.device)
+
+    def _flips(self):
+        return ALL_FLIPS if self.tta else NO_FLIPS
+
+    def _tensor(self, data):
+        if not torch.is_tensor(data):
+            data = torch.from_numpy(np.array(data, dtype=np.float32, order="C"))
+        return data.to(self.device, torch.float32)
+
+    def _sweep(self, vol):
+        """Softmax [D,H,W,C] of preprocessed ``vol`` [D,H,W] (unpadded)."""
+        res_shape = tuple(vol.shape)
+        C = int(self.plan.num_classes)
+        if use_fullvol(self.mode, res_shape, self.plan):
+            padded = pad_to(vol, fullvol_shape(res_shape, self.plan))
+            probs = fullvol_tta(self.model, padded, C, self._flips())
+        else:
+            target = padded_shape(res_shape, self.patch_size)
+            padded = pad_to(vol, target)
+            pos, pos_w = patch_positions(target, self.patch_size, self.step_fraction)
+            acc, wt = accumulate_patches(self.model, padded, pos, pos_w, self.gauss,
+                                         self.patch_size, C, self._flips())
+            probs = acc / torch.clamp(wt, min=1e-8)[..., None]
+        return probs[: res_shape[0], : res_shape[1], : res_shape[2]]
+
+    @torch.inference_mode()
+    def predict_volume(self, volume):
+        """volume: preprocessed [D,H,W] at plan spacing -> softmax [D,H,W,C]."""
+        return self._sweep(self._tensor(volume))
+
+    def _case(self, vol, spacing):
+        """Preprocess, sweep, resample fg back, threshold. ``spacing`` is
+        already rounded to 4 decimals; the resampled shape is
+        round(shape * spacing / target_spacing) per axis (Python round)."""
+        pre = preprocess_case(vol, spacing, self.plan)
+        fg = self._sweep(pre)[..., 1]
+        fg_orig = resample_to_shape(fg, tuple(vol.shape), order=1)
+        return (fg_orig > 0.5).to(torch.uint8), fg_orig
+
+    @torch.inference_mode()
+    def predict_case(self, data, spacing, apply_n4: bool = False):
+        """Raw volume + spacing -> (segmentation uint8, fg probability f32),
+        both in the original grid, on the predictor's device."""
+        spacing_r = tuple(round(float(s), 4) for s in spacing)
+        vol = self._tensor(data)
+        if apply_n4:
+            vol = n4_bias_correction(vol)
+        return self._case(vol, spacing_r)
+
+    @torch.inference_mode()
+    def predict_case_full(self, data, spacing, apply_n4: bool = False):
+        """The whole per-case pipeline — optional N4, resample/z-score,
+        sweep, resample back, threshold, 3 mm spark removal, brain-FOV
+        masking. Returns (pre, seg_raw, seg_3mm, seg_fov, fg) in the
+        original grid: f32, uint8, f32, f32, f32."""
+        spacing_r = tuple(round(float(s), 4) for s in spacing)
+        raw = self._tensor(data)
+        pre = n4_bias_correction(raw) if apply_n4 else raw
+        seg, fg = self._case(pre, spacing_r)
+        seg_3mm = remove_3mm_sparks(seg, spacing_r)
+        mask = brain_extract(pre, spacing_r)
+        seg_fov = ((seg_3mm * mask) > 0.5).float()
+        return pre, seg, seg_3mm, seg_fov, fg
