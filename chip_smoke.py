@@ -15,9 +15,20 @@ Phases, each printing JSON lines to stdout:
    per-stage timing of the same pipeline;
 4. card_vs_cpu: the card (kernel path, f32, no TF32) against the CPU (plain
    path) on a small plan, whole-volume and patch sweeps;
-5. postproc_exact: spark removal and the brain mask on the card equal to the
+5. k2: the 3x3x3 median kernel against its plain version (value equality)
+   at the flagship stage-1 call, an odd shape and 1x1x1, with the kernel's,
+   the plain version's and an unfold + torch.median route's times beside
+   its bound;
+6. stage1: stage-1 NLL lesion analysis through ``LesionAnalyzer`` at
+   192x224x192 1 mm with K = 10 synthetic registered references (two
+   cases), K2's launches from that run, the artifacts checked against the
+   planted lesions, then the device stages and host I/O of one case;
+7. postproc_exact: spark removal and the brain mask on the card equal to the
    CPU's at 192x224x192;
-6. kernels: one line listing each kernel with its launches on the main path.
+8. stage1_card_vs_cpu: the stage-1 core on the card against the CPU at
+   96x112x96, 2 mm, K = 4;
+9. kernels: one line listing each kernel with its launches on its path
+   (K1 on the predict path, K2 on the stage-1 path).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``. A failed phase
 raises, and the script exits non-zero before printing it; so it does with no
@@ -29,6 +40,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -39,7 +52,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM, NVIDIA's data sheet: HBM rate and the f32 rate outside the
-# tensor cores (the statistics kernel does f32 adds and FMAs)
+# tensor cores (FMA-counted; the statistics kernel does f32 adds and FMAs,
+# the median's min/max run at half of it)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12  # dense, tensor cores
@@ -68,6 +82,77 @@ def synthetic_flair(shape, seed):
     head = (r < 0.85).astype(np.float32)
     tex = rng.rand(*shape).astype(np.float32)
     return head * (400 + 150 * tex) + 30 * rng.rand(*shape).astype(np.float32)
+
+
+LESION_CENTERS = ((0.3, 0.2, 0.3), (-0.35, -0.1, 0.2), (0.0, 0.4, -0.1),
+                  (0.15, -0.2, -0.6))  # the last lies in the class-2 region
+LESION_RADIUS = 0.1
+
+
+def synthetic_cohort(shape, K, seed):
+    """A registered stage-1 cohort from a numpy seed, in normalised [-1, 1]
+    coordinates per axis (axis 2 runs inferior to superior):
+
+    - an ellipsoidal brain with a smooth intensity gradient and dark central
+      ventricles; references are the brain plus Gaussian noise;
+    - label1 brain masks whose radius differs a little per reference, so the
+      majority vote is not trivial;
+    - label2 tissue maps: 0 outside, 1 cerebrum, 2 an inferior
+      cerebellum/brainstem region, 3 the ventricles, each boundary moved a
+      little per reference;
+    - a target with four bright spherical lesions, one inside class 2.
+
+    Returns (target [D,H,W], refs, label1s, label2s [K,D,H,W], lesions), f32.
+    """
+    rng = np.random.default_rng(seed)
+    a, b, c = (np.linspace(-1, 1, s, dtype=np.float32).reshape(
+        [-1 if i == ax else 1 for i in range(3)]) for ax, s in enumerate(shape))
+    r = np.sqrt((a / 0.8) ** 2 + (b / 0.85) ** 2 + (c / 0.8) ** 2)
+    vent = (a / 0.25) ** 2 + (b / 0.35) ** 2 + ((c - 0.1) / 0.25) ** 2
+    brain = r < 1.0
+    base = np.where(vent < 1.0, 90.0, 200.0 + 40.0 * np.cos(3.0 * c) + 20.0 * a)
+    base = (base * brain).astype(np.float32)
+
+    def noisy():
+        return base + 8.0 * rng.standard_normal(shape, dtype=np.float32) * brain
+
+    refs = np.empty((K,) + tuple(shape), np.float32)
+    l1 = np.empty_like(refs)
+    l2 = np.empty_like(refs)
+    for k in range(K):
+        refs[k] = noisy()
+        brain_k = r < 1.0 + 0.02 * rng.standard_normal()
+        l1[k] = brain_k
+        cb_k = brain_k & (c < -0.45 + 0.03 * rng.standard_normal()) & (np.abs(a) < 0.6)
+        l2[k] = np.where(brain_k & (vent < 1.0 + 0.05 * rng.standard_normal()), 3.0,
+                         np.where(cb_k, 2.0, brain_k.astype(np.float32)))
+    lesions = np.zeros(shape, bool)
+    for ca, cb, cc in LESION_CENTERS:
+        lesions |= (a - ca) ** 2 + (b - cb) ** 2 + (c - cc) ** 2 < LESION_RADIUS ** 2
+    lesions = (lesions & brain).astype(np.float32)
+    return noisy() + 150.0 * lesions, refs, l1, l2, lesions
+
+
+def write_cohort(folder, shape, spacing, K, seed, suffix=".nii"):
+    """``synthetic_cohort`` written as NIfTI files (uncompressed unless
+    ``suffix`` is ".nii.gz"). Returns (target path, ref paths, label1
+    paths, label2 paths, lesions)."""
+    from deepwmh_tpu_torch.core import nifti
+
+    target, refs, l1, l2, lesions = synthetic_cohort(shape, K, seed)
+    hdr = nifti.NiftiHeader()
+    hdr.set_shape(shape)
+    hdr.set_zooms(spacing)
+    os.makedirs(folder, exist_ok=True)
+    tpath = os.path.join(folder, "target" + suffix)
+    nifti.save_nifti(target, hdr, tpath)
+    paths = {}
+    for name, stack in (("ref", refs), ("label1", l1), ("label2", l2)):
+        paths[name] = []
+        for k in range(K):
+            paths[name].append(os.path.join(folder, "%s%02d%s" % (name, k, suffix)))
+            nifti.save_nifti(stack[k], hdr, paths[name][-1])
+    return tpath, paths["ref"], paths["label1"], paths["label2"], lesions
 
 
 def cuda_ms(fn, iters: int = TIMED_ITERS) -> float:
@@ -138,10 +223,31 @@ def phase_device(kernels):
     build_s = time.perf_counter() - t0
     for k in kernels.KERNELS.values():
         k.lib()
+    # registers and spills per kernel, from the -Xptxas -v log of the build
+    ptxas = {}
+    for src, lib in libs.items():
+        log = ""
+        log_path = os.path.splitext(lib)[0] + ".log"
+        if os.path.isfile(log_path):  # absent when the library was built earlier
+            with open(log_path) as f:
+                log = f.read()
+        ptxas[src] = {"registers": [int(n) for n in re.findall(r"Used (\d+) registers", log)],
+                      "spill_store_bytes": [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]}
     emit({"phase": "device", "nvidia_smi": smi, "sources": sources,
           "libraries": [os.path.relpath(p, HERE) for p in libs.values()],
-          "build_s": build_s})
+          "build_s": build_s, "ptxas": ptxas})
     return smi
+
+
+def sass_count(library: str, opcode: str):
+    """How many ``opcode`` instructions the built library's SASS holds
+    (``cuobjdump -sass``); None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    return len(re.findall(r"\b%s\b" % opcode, sass))
 
 
 def phase_k1(kernels, plan):
@@ -464,6 +570,236 @@ def phase_postproc_exact(flair):
     emit({"phase": "postproc_exact", "shape": list(FLAGSHIP_SHAPE), **row})
 
 
+# ---------------------------------------------------------------------- #
+# stage-1 NLL lesion analysis and K2
+# ---------------------------------------------------------------------- #
+
+STAGE1_K = 10  # the reference cohort of the reference's OASIS-3 experiment
+K2_SHAPES = (FLAGSHIP_SHAPE, (61, 67, 53), (1, 1, 1))
+STAGE1_ARTIFACTS = ("anomaly_score", "valid_mask", "normalized_input", "averaged_label",
+                    "preprocessed_image", "segmentation", "segmentation_pp")
+
+
+def signed_volume(shape, seed):
+    """An f32 volume on the card with negative values, +0.0 and -0.0, as
+    stage-1's masked anomaly has."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    v = torch.randn(shape, generator=gen, device=DEVICE) * 3
+    v[torch.rand(shape, generator=gen, device=DEVICE) < 0.3] = 0.0
+    v[torch.rand(shape, generator=gen, device=DEVICE) < 0.15] = -0.0
+    return v
+
+
+def median3_library(vol):
+    """The closest library route to a 3-D median (no single PyTorch call
+    computes one): F.pad + three unfolds + torch.median(dim=-1)."""
+    import torch.nn.functional as F
+
+    D, H, W = vol.shape
+    win = F.pad(vol, (1, 1, 1, 1, 1, 1)).unfold(0, 3, 1).unfold(1, 3, 1).unfold(2, 3, 1)
+    return win.reshape(D, H, W, 27).median(-1).values
+
+
+def phase_k2(kernels):
+    """K2 against its plain version (value equality) and the unfold+median
+    library route at the flagship stage-1 call, an odd shape and 1x1x1.
+    Returns the kernels-line entry, timed at the flagship shape (one call
+    per stage-1 case)."""
+    import torch
+
+    k2 = kernels.median3
+    # the bound counts the network's live min/max; the built kernel's SASS
+    # should hold as many FMNMX (one output per thread)
+    ops = kernels.median27_minmax_ops()
+    fmnmx = sass_count(kernels.library_path(k2.source), "FMNMX")
+    entry = None
+    for i, shape in enumerate(K2_SHAPES):
+        vol = signed_volume(shape, seed=10 + i)
+        got = k2(vol)
+        want = kernels.median3_reference(vol)
+        lib = median3_library(vol)
+        torch.cuda.synchronize()
+        # a median is a selection: the same value, -0.0 == +0.0
+        check(torch.equal(got, want), "K2 differs from its plain version at %s" % (shape,))
+        check(torch.equal(lib, want), "the library route differs at %s" % (shape,))
+        n = vol.numel()
+        row = {
+            "kernel_ms": cuda_ms(lambda: k2(vol)),
+            "plain_ms": cuda_ms(lambda: kernels.median3_reference(vol)),
+            "library_ms": cuda_ms(lambda: median3_library(vol)),
+            # each voxel read once and written once
+            "bytes_ms": 8 * n / HBM_BYTES_PER_S * 1e3,
+            # min/max instructions at the f32 non-FMA rate
+            "ops_ms": ops * n / (F32_FLOP_PER_S / 2) * 1e3,
+        }
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        err = float((got - want).abs().max())
+        emit({"phase": "k2", "shape": list(shape), "minmax_per_voxel": ops,
+              "sass_fmnmx": fmnmx,
+              "max_abs_err": err, "library_route": "F.pad + 3x unfold + torch.median(dim=-1)",
+              **row})
+        if shape == FLAGSHIP_SHAPE:
+            entry = {
+                "name": "median3", "route": "cuda",
+                "source": "deepwmh_tpu_torch/csrc/median3.cu",
+                "replaces": "deepwmh_tpu/ops/pallas_kernels.py:59",
+                "max_abs_err": err, "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations",
+                "library_ms": row["library_ms"],
+                "per": "one flagship stage-1 call, %dx%dx%d" % shape,
+            }
+        del vol, got, want, lib
+    return entry
+
+
+def _dice(a, b):
+    return 2.0 * float((a & b).sum()) / max(float(a.sum() + b.sum()), 1.0)
+
+
+def phase_stage1(kernels, work, smi):
+    """Stage-1 NLL lesion analysis through LesionAnalyzer at the flagship
+    geometry with K = 10 references, two cases (the same cohort under two
+    names); K2's launch count is that of this run only. Then the same case
+    stage by stage for where the time goes."""
+    import torch
+
+    from deepwmh_tpu_torch.core import nifti
+    from deepwmh_tpu_torch.pipeline.analysis import LesionAnalyzer
+
+    t0 = time.perf_counter()
+    *inputs, lesions = write_cohort(os.path.join(work, "cohort"), FLAGSHIP_SHAPE,
+                                    FLAGSHIP_SPACING, STAGE1_K, seed=0)
+    setup_s = time.perf_counter() - t0
+    cases = ["case0", "case1"]
+    out = os.path.join(work, "stage1")
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    an = LesionAnalyzer(out, device=DEVICE)
+    for case in cases:
+        an.add_case(case, *inputs)
+    an.analyze_and_do_segmentation(intensity_prior="+")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["median3"] == len(cases),
+          "K2 launched %d times on the stage-1 path, expected once per case (%d)"
+          % (launches["median3"], len(cases)))
+
+    arts = {}
+    for case in cases:
+        case_dir = os.path.join(out, case)
+        for f in ("summary.json", "segmentation.txt"):
+            check(os.path.isfile(os.path.join(case_dir, f)), "%s: no %s" % (case, f))
+        with open(os.path.join(case_dir, "summary.json")) as f:
+            summary = json.load(f)
+        thr = summary["autoseg_threshold"]
+        check(math.isfinite(thr), "%s: threshold %r" % (case, thr))
+        a = {"threshold": thr}
+        for key in STAGE1_ARTIFACTS:
+            data, h = nifti.load_nifti(os.path.join(case_dir, key + ".nii.gz"))
+            check(data.shape == FLAGSHIP_SHAPE and np.isfinite(data).all(),
+                  "%s %s: shape %s or non-finite values" % (case, key, data.shape))
+            check(tuple(h.zooms[:3]) == FLAGSHIP_SPACING, "%s %s: zooms %s" % (case, key, h.zooms))
+            a[key] = data
+        seg, pp = a["segmentation"] > 0.5, a["segmentation_pp"] > 0.5
+        check(not (pp & ~seg).any(), "%s: segmentation_pp is not inside segmentation" % case)
+        a["dice_pp"] = _dice(pp, lesions > 0.5)
+        check(a["dice_pp"] > 0.5, "%s: Dice %.3f against the planted lesions" % (case, a["dice_pp"]))
+        arts[case] = a
+    first, second = arts[cases[0]], arts[cases[1]]
+    check(all(np.array_equal(first[k], second[k]) for k in STAGE1_ARTIFACTS + ("threshold",)),
+          "the same inputs gave two different results")
+    avg = first["averaged_label"]
+    in_cb = float((lesions * (avg == 2)).sum())
+    check(in_cb > 0, "no planted lesion lies in the class-2 (median) region")
+
+    # the same case stage by stage: host reads, the core's device stages
+    # (each between two synchronisations), artifact writes, segmentation
+    an2 = LesionAnalyzer(os.path.join(work, "stage1_staged"), device=DEVICE)
+    an2.add_case(cases[0], *inputs)
+    io, stage_s = {}, {}
+    loaded = _timed("read_inputs", lambda: an2._load_case(cases[0]), io)
+    result, hdr, _ = _timed("analyze_case", lambda: an2.analyze_case(
+        cases[0], loaded=loaded, stage_s=stage_s), io)
+    _timed("write_artifacts", lambda: an2._save_case_artifacts(cases[0], result, hdr, "+"), io)
+    _timed("segmentation_and_pp", lambda: an2.analyze_and_do_segmentation("+"), io)
+    check(result.threshold == first["threshold"] and np.array_equal(result.anomaly,
+                                                                   first["anomaly_score"]),
+          "the staged rerun differs from the main run")
+    stage_sum = sum(stage_s.values())
+    emit({"phase": "stage1", "nvidia_smi": smi, "shape": list(FLAGSHIP_SHAPE),
+          "spacing": list(FLAGSHIP_SPACING), "K": STAGE1_K, "cases": len(cases),
+          "setup_s": setup_s, "wall_s": wall_s, "s_per_case": wall_s / len(cases),
+          "peak_device_gb": peak_gb, "launches": launches, "threshold": first["threshold"],
+          "dice_pp": first["dice_pp"], "lesion_voxels": float(lesions.sum()),
+          "lesion_voxels_in_class2": in_cb,
+          "seg_fraction": float(first["segmentation"].mean()),
+          "seg_pp_fraction": float(first["segmentation_pp"].mean()),
+          "device_stage_s": stage_s, "device_stage_sum_s": stage_sum,
+          "median3_share_of_device": stage_s["median_3mm"] / stage_sum,
+          # analyze_case outside the device stages: the host's stacking and
+          # label-count work and the copies to and from the card
+          "host_s": io, "analyze_case_outside_stages_s": io["analyze_case"] - stage_sum})
+    return launches
+
+
+def phase_stage1_card_vs_cpu(kernels):
+    """The stage-1 core on the card (K2 path) against the CPU (plain path)
+    at 96x112x96, 2 mm, K = 4, where the median is still 3x3x3."""
+    import torch
+
+    from deepwmh_tpu_torch.ops.components import remove_3mm_sparks
+    from deepwmh_tpu_torch.pipeline.analysis import nll_analysis_core, patch_size_from_voxel
+
+    shape, spacing = (96, 112, 96), (2.0, 2.0, 2.0)
+    x, refs, l1, l2, _ = synthetic_cohort(shape, 4, seed=1)
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        before = kernels.median3.launches
+        t0 = time.perf_counter()
+        res = nll_analysis_core(*(torch.from_numpy(a).to(dev) for a in (x, refs, l1, l2)),
+                                patch_size=patch_size_from_voxel(spacing), voxel_size=spacing,
+                                num_label_classes=int(l2.max()) + 1)
+        anomaly, thr = res[0], res[8]
+        seg = (anomaly > thr).float()
+        pp = remove_3mm_sparks(seg, spacing)
+        outs[dev] = {"anomaly": anomaly, "valid": res[1], "avg": res[3], "x": res[4],
+                     "thr": float(thr), "seg": seg, "pp": pp}
+        outs[dev] = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                     for k, v in outs[dev].items()}
+        outs[dev]["s"] = time.perf_counter() - t0
+        if dev == DEVICE:
+            check(kernels.median3.launches == before + 1, "the card's stage-1 core launched no K2")
+    card, cpu = outs[DEVICE], outs["cpu"]
+    bin_w = float(cpu["x"][1] - cpu["x"][0])
+    row = {
+        "anomaly_max_rel": float(np.abs(card["anomaly"] - cpu["anomaly"]).max()
+                                 / np.abs(cpu["anomaly"]).max()),
+        "threshold_card": card["thr"], "threshold_cpu": cpu["thr"], "bin_width": bin_w,
+        "valid_agreement": float((card["valid"] == cpu["valid"]).mean()),
+        "seg_agreement": float((card["seg"] == cpu["seg"]).mean()),
+        "seg_pp_agreement": float((card["pp"] == cpu["pp"]).mean()),
+        "averaged_label_equal": bool(np.array_equal(card["avg"], cpu["avg"])),
+        "seg_fraction": float(cpu["seg"].mean()), "card_s": card["s"], "cpu_s": cpu["s"],
+    }
+    check(row["anomaly_max_rel"] < 1e-4, "stage-1 anomaly card vs CPU: %r" % row)
+    check(abs(card["thr"] - cpu["thr"]) <= bin_w * 1.0001, "stage-1 threshold card vs CPU: %r" % row)
+    for key in ("valid_agreement", "seg_agreement", "seg_pp_agreement"):
+        check(row[key] >= 0.999, "stage-1 %s card vs CPU: %r" % (key, row))
+    check(row["averaged_label_equal"], "stage-1 averaged label card vs CPU: %r" % row)
+    check(row["seg_fraction"] > 0, "stage-1 card vs CPU compared empty segmentations")
+    emit({"phase": "stage1_card_vs_cpu", "shape": list(shape), "spacing": list(spacing), "K": 4,
+          **row})
+
+
 def main() -> int:
     import torch
 
@@ -486,14 +822,20 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device(kernels)
     k1_entry = phase_k1(kernels, default_plan_1mm_iso())
+    k2_entry = phase_k2(kernels)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=HERE) as work:
         launches, flair = phase_main_path(kernels, work, smi)
         phase_card_vs_cpu(kernels, work)
+        stage1_launches = phase_stage1(kernels, work, smi)
     phase_postproc_exact(flair)
+    phase_stage1_card_vs_cpu(kernels)
+    # each kernel's launches on its own path: K1 on predict, K2 on stage-1
     k1_entry["launches"] = launches["instance_norm_stats"]
-    check(set(launches) == {"instance_norm_stats"}, "unlisted kernels: %s" % sorted(launches))
+    k2_entry["launches"] = stage1_launches["median3"]
+    check(set(launches) == set(stage1_launches) == {"instance_norm_stats", "median3"},
+          "unlisted kernels: %s" % sorted(launches))
     emit({"phase": "done", "total_s": time.perf_counter() - t_start, "nvidia_smi": smi})
-    emit({"kernels": [k1_entry]})
+    emit({"kernels": [k1_entry, k2_entry]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import gzip
 import os
+import shutil
 import struct
 from dataclasses import dataclass, field
 
@@ -307,6 +308,15 @@ def save_nifti(data, header, path, dtype="float32", level=4):
     hdr.datatype = code
     payload = _serialize_header(hdr, code) + b"\x00" * 4 + data.tobytes(order="F")
     _write_payload(payload, path, level=level)
+
+
+def copy_nifti(src, dst, level=4) -> None:
+    """Copy a NIfTI file, compressing or decompressing the bytes when the
+    two names differ in their ``.gz`` suffix, so the copy reads back."""
+    if str(src).endswith(".gz") == str(dst).endswith(".gz"):
+        shutil.copyfile(src, dst)
+    else:
+        _write_payload(_read_raw(src), dst, level=level)
 
 
 def get_nifti_header(path) -> NiftiHeader:

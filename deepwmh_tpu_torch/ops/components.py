@@ -1,4 +1,4 @@
-"""Connected components and component filtering (port of
+"""Connected components, component filtering and label voting (port of
 ``deepwmh_tpu.ops.components``).
 
 Labels are exactly the JAX function's: 6-connectivity (faces), every
@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from deepwmh_tpu_torch.ops.morphology import binary_erosion_2d
 
 
 def _run_min(lbl, m, ax: int, N: int):
@@ -100,3 +102,44 @@ def largest_component(mask, axes=(0, 1, 2)):
     min_root = cand.amin(dim=red, keepdim=True)
     keep = m & (lbl == min_root) & (max_sz > 0)
     return keep.float()
+
+
+def component_filtering(mask, voxel_size):
+    """Per-slice brain-mask clean-up: for each filtered orientation erode
+    every 2D slice (cross, zero border) and keep its largest component;
+    the result is the union over orientations. Thick-slice data
+    (max/min pixdim > 3) filters only the thick axis."""
+    pv = [float(v) for v in voxel_size]
+    if max(pv) / min(pv) > 3.0:
+        do_filtering = [ax == int(np.argmax(pv)) for ax in range(3)]
+    else:
+        do_filtering = [True, True, True]
+    m = (mask > 0.5).float()
+    union = torch.zeros_like(m)
+    for ax in range(3):
+        if do_filtering[ax]:
+            inplane = tuple(a for a in range(3) if a != ax)
+            union = union + largest_component(binary_erosion_2d(m, slice_axis=ax), axes=inplane)
+        else:
+            union = union + m
+    return (union > 0.5).float()
+
+
+def average_contiguous_labels(stack, num_classes: int):
+    """Majority vote over a [K, ...] stack of label maps with ids
+    0..num_classes-1; ties go to the lowest id (``torch.argmax`` returns
+    the first maximum, like ``np.argmax``). Returns int64."""
+    ilbl = stack.to(torch.int32)
+    counts = torch.stack([(ilbl == ch).float().sum(0) for ch in range(num_classes)])
+    return torch.argmax(counts, dim=0)
+
+
+def map_label(label, src_ids, dst_ids):
+    """Remap label ids on the host (numpy in, int32 numpy out)."""
+    if len(src_ids) != len(dst_ids):
+        raise ValueError("src_ids and dst_ids differ in length")
+    i_label = np.around(np.asarray(label)).astype("int32")
+    out = np.zeros_like(i_label)
+    for s, d in zip(src_ids, dst_ids):
+        out[i_label == s] = d
+    return out

@@ -1,8 +1,9 @@
-"""Histograms and Otsu thresholding (port of ``deepwmh_tpu.ops.histogram``'s
-``masked_histogram`` and ``otsu_threshold``).
+"""Histograms, Otsu thresholding, the anomaly histogram curves and the
+zero-crossing auto-threshold (port of ``deepwmh_tpu.ops.histogram``).
 
 Bin geometry follows np.histogram: values outside [lo, hi] are dropped and
-x == hi lands in the last bin. Otsu keeps the first maximum.
+x == hi lands in the last bin. Otsu keeps the first maximum. The counts are
+``index_add_`` sums of 0/1 weights, exact in any order below 2**24 per bin.
 """
 
 from __future__ import annotations
@@ -51,3 +52,63 @@ def otsu_threshold(image, mask=None, nbins: int = 256):
     # torch.argmax returns the first maximum, like jnp.argmax
     idx = torch.argmax(torch.nan_to_num(variance12, nan=-torch.inf))
     return centers[idx]
+
+
+def _centers(lo, hi, nbins: int, device):
+    edges = lo + (hi - lo) * torch.arange(nbins + 1, dtype=torch.float32,
+                                          device=device) / nbins
+    return (edges[:-1] + edges[1:]) / 2.0
+
+
+def hist_curve(data, lo, hi, nbins: int, log_y: bool = False, mask=None):
+    """Histogram curve over uniform bins: (bin centers, counts). With
+    ``log_y`` zero counts become 0.001 before log10 and negatives are
+    clamped to 0, the reference's log-scale transform. ``lo`` and ``hi``
+    are numbers or 0-d tensors."""
+    lo, hi = (torch.as_tensor(v, dtype=torch.float32, device=data.device) for v in (lo, hi))
+    w = None if mask is None else (mask > 0.5).float()
+    hist = masked_histogram(data, lo, hi, nbins, weights=w)
+    if log_y:
+        hist = torch.log10(torch.where(hist == 0, 0.001, hist))
+        hist = torch.where(hist < 0, 0.0, hist)
+    return _centers(lo, hi, nbins, data.device), hist
+
+
+def histogram_analysis(a_prime, a_refs, mask, nbins: int = 400):
+    """Anomaly histogram curves with automatic bins: bin width = the mean
+    over references of mean(a_ref[mask & a_ref > 0]) / 4, bins over
+    [0, nbins * width]. Returns (x, y, r, rs), rs the [K, nbins] stack of
+    per-reference log curves and r their mean."""
+    sel = (mask > 0.5)[None] & (a_refs > 0)
+    dims = tuple(range(1, a_refs.dim()))
+    cnt = sel.float().sum(dims)
+    s = torch.where(sel, a_refs, 0.0).sum(dims)
+    bin_width = (s / torch.clamp(cnt, min=1.0)).mean() / 4.0
+    lo = torch.zeros((), dtype=torch.float32, device=a_prime.device)
+    hi = nbins * bin_width
+    x, y = hist_curve(a_prime, lo, hi, nbins, log_y=True)
+    rs = torch.stack([hist_curve(r, lo, hi, nbins, log_y=True)[1] for r in a_refs])
+    return x, y, rs.mean(0), rs
+
+
+def _nanmedian(v):
+    """Median of the finite entries, the two middles averaged for an even
+    count (``jnp.nanmedian``; ``torch.nanmedian`` returns the lower one);
+    NaN when there is none."""
+    v = torch.sort(v[~torch.isnan(v)]).values
+    n = v.numel()
+    if n == 0:
+        return torch.full((), torch.nan, dtype=torch.float32, device=v.device)
+    return v[(n - 1) // 2] * 0.5 + v[n // 2] * 0.5
+
+
+def auto_threshold_from_curves(curve_x, curve_rs, cutoff: float = 0.01):
+    """Threshold = median over references of the last bin (bin 0 never
+    counts) whose log curve exceeds ``cutoff``; references that never
+    exceed it are left out."""
+    nbins = curve_x.shape[0]
+    iota = torch.arange(nbins, device=curve_x.device)
+    above = (curve_rs > cutoff) & (iota[None, :] > 0)
+    last_idx = torch.where(above, iota[None, :], -1).amax(1)
+    crossing = torch.where(last_idx >= 0, curve_x[last_idx.clamp(min=0)], torch.nan)
+    return _nanmedian(crossing)

@@ -22,6 +22,7 @@ import subprocess
 import threading
 
 import torch
+import torch.nn.functional as F
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -184,5 +185,77 @@ class InstanceNormStats(CudaKernel):
 
 instance_norm_stats = InstanceNormStats()
 
+
+# ---------------------------------------------------------------------- #
+# K2: 3x3x3 median
+# ---------------------------------------------------------------------- #
+
+
+def median3_reference(vol: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2: the 3x3x3 median of ``vol`` [D, H, W] with
+    zeros outside, in f32: the 27 shifted views of the zero-padded volume
+    stacked on a leading axis, sorted, rank 13."""
+    D, H, W = vol.shape
+    padded = F.pad(vol.float(), (1, 1, 1, 1, 1, 1))
+    win = torch.stack([padded[dz:dz + D, dy:dy + H, dx:dx + W]
+                       for dz in range(3) for dy in range(3) for dx in range(3)])
+    return torch.sort(win, dim=0).values[13]
+
+
+def median27_minmax_ops() -> int:
+    """min/max instructions per voxel of the kernel's selection network:
+    _median27's 27-pass odd-even transposition network with the
+    compare-exchanges whose outputs never reach rank 13 removed, as the
+    compiler removes them (a live exchange costs one instruction per output
+    still needed)."""
+    n, needed, ops = 27, {13}, 0
+    exchanges = [i for p in range(n) for i in range(p % 2, n - 1, 2)]
+    for i in reversed(exchanges):
+        live = len({i, i + 1} & needed)
+        if live:
+            ops += live
+            needed |= {i, i + 1}
+    return ops
+
+
+class Median3(CudaKernel):
+    """K2 (replaces deepwmh_tpu/ops/pallas_kernels.py median3_pallas).
+    ``vol`` [D, H, W] f32 -> a new [D, H, W] f32 tensor, zeros outside the
+    volume. On CUDA ``vol`` must be contiguous; the kernel is defined on
+    finite input."""
+
+    source = "median3.cu"
+
+    def _bind(self, lib) -> None:
+        lib.median3_f32.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.median3_f32.restype = ctypes.c_int
+
+    def __call__(self, vol: torch.Tensor) -> torch.Tensor:
+        if vol.dim() != 3 or vol.dtype != torch.float32 or min(vol.shape) < 1:
+            raise ValueError("median3: need an f32 [D, H, W] tensor with every axis "
+                             ">= 1 (got %s %s)" % (vol.dtype, tuple(vol.shape)))
+        if vol.device.type == "cpu":
+            return median3_reference(vol)
+        if vol.device.type != "cuda":
+            raise ValueError("median3: unsupported device %s" % vol.device)
+        if not vol.is_contiguous():
+            raise ValueError("median3: need a contiguous volume (strides %s)"
+                             % (vol.stride(),))
+        lib = self.lib()
+        out = torch.empty_like(vol)
+        D, H, W = vol.shape
+        with torch.cuda.device(vol.device):
+            err = lib.median3_f32(vol.data_ptr(), out.data_ptr(), D, H, W, _stream(vol))
+        if err:
+            raise RuntimeError("median3: launch failed, CUDA error %d" % err)
+        self.launches += 1
+        return out
+
+
+median3 = Median3()
+
 # every kernel of the port, for the build step and the launch counts
-KERNELS = {"instance_norm_stats": instance_norm_stats}
+KERNELS = {"instance_norm_stats": instance_norm_stats, "median3": median3}

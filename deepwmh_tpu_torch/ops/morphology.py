@@ -32,6 +32,24 @@ def _dilate(m, axes):
     return out
 
 
+def binary_erosion_2d(mask, slice_axis: int, iterations: int = 1):
+    """Erode every 2D slice across ``slice_axis`` with the 2D cross, zero
+    border, all slices at once."""
+    m = mask > 0.5
+    axes = tuple(a for a in range(mask.dim()) if a != slice_axis)
+    for _ in range(iterations):
+        m = _erode(m, axes)
+    return m.float()
+
+
+def binary_dilation_2d(mask, slice_axis: int, iterations: int = 1):
+    m = mask > 0.5
+    axes = tuple(a for a in range(mask.dim()) if a != slice_axis)
+    for _ in range(iterations):
+        m = _dilate(m, axes)
+    return m.float()
+
+
 def binary_erosion_3d(mask, iterations: int = 1):
     m = mask > 0.5
     for _ in range(iterations):

@@ -1,0 +1,47 @@
+"""Host-side parallel fan-out for I/O-bound work (the port's copy of
+``deepwmh_tpu.utils.parallel.run_parallel`` and ``utils.misc.minibar``).
+
+A thread pool: the host work is gzip/NIfTI I/O, whose zlib calls release
+the interpreter lock, while the compute runs on the card. The first worker
+exception cancels the rest and is raised.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import FIRST_EXCEPTION, ThreadPoolExecutor, wait
+
+
+def minibar(progress: float, width: int = 30, msg: str = "") -> str:
+    """Tiny text progress bar string."""
+    progress = min(max(progress, 0.0), 1.0)
+    filled = int(progress * width)
+    return "[%s%s] %3d%% %s" % ("#" * filled, "-" * (width - filled),
+                                int(progress * 100), msg)
+
+
+def run_parallel(fn, tasks, num_workers: int = 8, desc: str = "", show_progress=True):
+    """Apply fn to every task; fail fast on the first exception. Returns
+    results in task order."""
+    results = [None] * len(tasks)
+    if not tasks:
+        return results
+    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+        futures = {pool.submit(fn, t): i for i, t in enumerate(tasks)}
+        pending = set(futures)
+        done_count = 0
+        while pending:
+            done, pending = wait(pending, return_when=FIRST_EXCEPTION)
+            for f in done:
+                exc = f.exception()
+                if exc is not None:
+                    for p in pending:
+                        p.cancel()
+                    raise exc
+                results[futures[f]] = f.result()
+                done_count += 1
+            if show_progress and desc:
+                print("\r" + minibar(done_count / len(tasks), msg=desc),
+                      end="", flush=True)
+        if show_progress and desc:
+            print()
+    return results

@@ -1,6 +1,6 @@
 """deepwmh_tpu_torch on a CUDA card: each hand-written kernel against its
-plain PyTorch version, the wrappers' checks, and the U-Net on the card
-against the CPU. Every test here needs a card and skips without one; this
+plain PyTorch version, the wrappers' checks, and the U-Net and the 3 mm
+median on the card against the CPU. Every test here needs a card and skips without one; this
 file imports no JAX, so that it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
@@ -9,7 +9,7 @@ file imports no JAX, so that it runs where JAX is absent:
 import pytest
 import torch
 
-from deepwmh_tpu_torch.ops import kernels
+from deepwmh_tpu_torch.ops import filters, kernels
 from deepwmh_tpu_torch.unet.model import UNet3D, init_weights
 from deepwmh_tpu_torch.unet.plan import Plan
 
@@ -76,3 +76,46 @@ def test_unet_on_card_matches_cpu(cuda):
     assert kernels.instance_norm_stats.launches - before == 4 * plan.num_pools + 2
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+def _signed_volume(shape, seed, device):
+    """Negative values, +0.0 and -0.0, as stage-1's masked anomaly has."""
+    g = torch.Generator().manual_seed(seed)
+    v = torch.randn(shape, generator=g)
+    v[torch.rand(shape, generator=g) < 0.3] = 0.0
+    v[torch.rand(shape, generator=g) < 0.15] = -0.0
+    return v.to(device)
+
+
+@pytest.mark.parametrize("shape", [(61, 67, 53), (1, 1, 1), (2, 9, 33), (5, 1, 70), (17, 8, 32)])
+def test_median3_matches_plain(cuda, shape):
+    vol = _signed_volume(shape, sum(shape), cuda)
+    before = kernels.median3.launches
+    got = kernels.median3(vol)
+    torch.cuda.synchronize()
+    assert kernels.median3.launches == before + 1
+    assert got.shape == vol.shape and got.dtype == torch.float32
+    # a median is a selection: value equality (-0.0 == +0.0)
+    assert torch.equal(got, kernels.median3_reference(vol))
+    assert torch.equal(got.cpu(), kernels.median3_reference(vol.cpu()))
+
+
+def test_median3_refuses_what_it_cannot_read(cuda):
+    vol = torch.randn(6, 7, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.median3(vol.transpose(0, 2))
+    with pytest.raises(ValueError, match="f32"):
+        kernels.median3(vol.double())
+    with pytest.raises(ValueError, match="f32"):
+        kernels.median3(vol[0])
+
+
+@pytest.mark.parametrize("voxel_size", [(2.0, 2.0, 2.0), (1.0, 1.0, 5.0)])
+def test_median_3mm_on_card_equals_cpu(cuda, voxel_size):
+    vol = _signed_volume((24, 30, 22), 7, "cpu")
+    before = kernels.median3.launches
+    got = filters.median_3mm(vol.to(cuda), voxel_size)
+    torch.cuda.synchronize()
+    # (3, 3, 3) at 2 mm goes to K2; 1x1x5 mm is a (3, 3, 1) sort on both
+    assert kernels.median3.launches - before == (1 if voxel_size[2] == 2.0 else 0)
+    assert torch.equal(got.cpu(), filters.median_3mm(vol, voxel_size))
