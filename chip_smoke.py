@@ -5,20 +5,26 @@
 Phases, each printing JSON lines to stdout:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the build
-   of every CUDA kernel of the port from ``deepwmh_tpu_torch/csrc``;
-2. k1: the instance-norm statistics kernel against its plain PyTorch version
-   at every [N, M, C] the flagship forward gives it, with the kernel's, the
-   plain version's and ``torch.var_mean``'s times beside the memory bound;
+   of every CUDA kernel of the port from ``deepwmh_tpu_torch/csrc`` (and of
+   the min/max rate probe ``fmnmx_rate.cu``), with registers and spills;
+2. k1: K1's two kernels at every [N, M, C] the flagship forward gives them:
+   the statistics kernel against its plain PyTorch version (and the same
+   bits on a second call) with its back-to-back, device-only (profiler) and
+   host-per-call times beside ``torch.var_mean``'s (the two measured in
+   turns, medians of five) and the memory bound;
+   the apply kernel (normalize + affine + leaky ReLU) bit for bit against
+   the plain chain, with both times and its memory bound;
 3. main_path: ``DeepWMH_predict`` through ``run_predict`` at the flagship plan
    (192x224x192 1 mm FLAIR, 8-flip whole-volume TTA, random weights from a
    seed) on two cases, with the kernels' launch counts from that run, then a
-   per-stage timing of the same pipeline;
+   per-stage timing of the same pipeline and a profile of one TTA sweep;
 4. card_vs_cpu: the card (kernel path, f32, no TF32) against the CPU (plain
    path) on a small plan, whole-volume and patch sweeps;
 5. k2: the 3x3x3 median kernel against its plain version (value equality)
    at the flagship stage-1 call, an odd shape and 1x1x1, with the kernel's,
    the plain version's and an unfold + torch.median route's times beside
-   its bound;
+   its bound, its min/max per output (counted and from the SASS) and the
+   card's min/max rate measured by the probe;
 6. stage1: stage-1 NLL lesion analysis through ``LesionAnalyzer`` at
    192x224x192 1 mm with K = 10 synthetic registered references (two
    cases), K2's launches from that run, the artifacts checked against the
@@ -28,7 +34,8 @@ Phases, each printing JSON lines to stdout:
 8. stage1_card_vs_cpu: the stage-1 core on the card against the CPU at
    96x112x96, 2 mm, K = 4;
 9. kernels: one line listing each kernel with its launches on its path
-   (K1 on the predict path, K2 on the stage-1 path).
+   (K1's statistics and apply kernels on the predict path, K2 on the
+   stage-1 path).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``. A failed phase
 raises, and the script exits non-zero before printing it; so it does with no
@@ -217,7 +224,8 @@ def phase_device(kernels):
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    sources = sorted({k.source for k in kernels.KERNELS.values()})
+    # every kernel of the port, and the min/max rate probe of phase k2
+    sources = sorted({k.source for k in kernels.KERNELS.values()} | {"fmnmx_rate.cu"})
     t0 = time.perf_counter()
     libs = kernels.build(sources)
     build_s = time.perf_counter() - t0
@@ -250,60 +258,162 @@ def sass_count(library: str, opcode: str):
     return len(re.findall(r"\b%s\b" % opcode, sass))
 
 
-def phase_k1(kernels, plan):
-    """K1 against its plain version and torch.var_mean at the flagship
-    forward's shapes. Returns the kernels-line entry: times summed over the
-    22 calls of one forward."""
+def device_ms(fn, iters: int = TIMED_ITERS):
+    """Device time of fn() in ms per call: the summed duration of the CUDA
+    kernels torch.profiler records over ``iters`` calls (no host gaps). The
+    profiler on the card's machine now and then delivers fewer kernel
+    records than were launched, so three windows are profiled and only
+    those with the most records (at least one per call) count; their
+    median is returned, None (not measured) if none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen.append((len(spans), sum(spans) / 1e3 / iters))
+    most = max(n for n, _ in seen)
+    if most < iters:
+        return None
+    return float(np.median([ms for n, ms in seen if n == most]))
+
+
+def host_us(fn, iters: int = TIMED_ITERS) -> float:
+    """Host time of fn() in microseconds per call: the enqueue, with the
+    card's queue drained before and after (not inside) the timed calls."""
     import torch
 
-    k1 = kernels.instance_norm_stats
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def in_turns(measure, fns: dict) -> dict:
+    """``measure(fn)`` of each of ``fns`` in turns, five times; the median
+    per name. Host-bound times drift with the host's load, so two
+    versions are compared only measured in turns."""
+    seen = {name: [] for name in fns}
+    for _ in range(5):
+        for name, fn in fns.items():
+            seen[name].append(measure(fn))
+    return {name: float(np.median(v)) for name, v in seen.items()}
+
+
+def phase_k1(kernels, plan):
+    """K1's statistics kernel against its plain version and torch.var_mean,
+    and K1's apply kernel against the plain chain it replaces, at every
+    [N, M, C] of the flagship forward. Returns the kernels-line entries of
+    both: times summed over the 22 calls of one forward."""
+    import torch
+
+    stats, act = kernels.instance_norm_stats, kernels.instance_norm_act
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    total = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-             "bytes_ms": 0.0, "ops_ms": 0.0}
-    max_err = 0.0
+    keys = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bytes_ms", "ops_ms", "act_ms", "act_plain_ms", "act_bytes_ms")
+    total = {k: 0.0 for k in keys}
+    max_err = act_err = 0.0
     calls_per_forward = 0
+    slope = float(torch.tensor(0.01, dtype=torch.bfloat16))  # the bf16 model's slope
     for spatial, c, calls in stats_shapes(plan, FLAGSHIP_SHAPE):
         x = (torch.randn((1,) + spatial + (c,), generator=gen, device=DEVICE) * 2
              + 0.5).to(torch.bfloat16)
         n, m = 1, int(np.prod(spatial))
-        mean, var = k1(x)
+        mean, var = stats(x)
+        again = stats(x)
         ref_mean, ref_var = kernels.instance_norm_stats_reference(x)
         torch.cuda.synchronize()
         # f32 sums in another order than torch's reduction: both are within
-        # a few ulps of the exact moments (var ~ 4 here)
+        # a few ulps of the exact moments (var ~ 4 here); the kernel's own
+        # order is fixed, so a second call gives the same bits
         torch.testing.assert_close(mean, ref_mean, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(var, ref_var, atol=1e-4, rtol=1e-4)
+        check(torch.equal(mean, again[0]) and torch.equal(var, again[1]),
+              "K1 gave other bits on a second call at %s" % ([n, m, c],))
         err = max(float((mean - ref_mean).abs().max()), float((var - ref_var).abs().max()))
+        # the apply pass on the statistics as ConvNormAct forms them (unit
+        # scale, a bias), bit for bit against the plain chain
+        mul = torch.rsqrt(var.clamp_min(0.0) + 1e-5)
+        bias = torch.linspace(-0.5, 0.5, c, device=DEVICE)
+        out = act(x, mean, mul, bias, slope)
+        want = kernels.instance_norm_act_reference(x, mean, mul, bias, slope)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), "K1's apply pass differs from the plain chain at %s"
+              % ([n, m, c],))
+        row_act_err = float((out.float() - want.float()).abs().max())
         x3 = x.view(n, m, c)
+        pair = {"kernel": lambda: stats(x),
+                "library": lambda: torch.var_mean(x3, dim=1, correction=0)}
+        b2b, host = in_turns(cuda_ms, pair), in_turns(host_us, pair)
         row = {
-            "kernel_ms": cuda_ms(lambda: k1(x)),
+            "kernel_ms": b2b["kernel"],
+            "kernel_device_ms": device_ms(pair["kernel"]),
+            "kernel_host_us": host["kernel"],
             "plain_ms": cuda_ms(lambda: kernels.instance_norm_stats_reference(x)),
-            "library_ms": cuda_ms(lambda: torch.var_mean(x3, dim=1, correction=0)),
+            "library_ms": b2b["library"],
+            "library_device_ms": device_ms(pair["library"]),
+            "library_host_us": host["library"],
             # each input element read once, mean and var written once
             "bytes_ms": (x.numel() * x.element_size() + 2 * n * c * 4) / HBM_BYTES_PER_S * 1e3,
             # per element: an add for the sum, an FMA (2) for the squares
             "ops_ms": 3 * x.numel() / F32_FLOP_PER_S * 1e3,
+            "act_ms": cuda_ms(lambda: act(x, mean, mul, bias, slope)),
+            "act_plain_ms": cuda_ms(
+                lambda: kernels.instance_norm_act_reference(x, mean, mul, bias, slope)),
+            # the activation read once and written once, the [N, C] inputs read
+            "act_bytes_ms": (2 * x.numel() * x.element_size() + 3 * n * c * 4)
+            / HBM_BYTES_PER_S * 1e3,
         }
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
         emit({"phase": "k1", "shape_nmc": [n, m, c], "calls_per_forward": calls,
-              "max_abs_err": err, **row})
+              "max_abs_err": err, "act_max_abs_err": row_act_err, **row})
         for key in total:
-            total[key] += calls * row[key]
+            total[key] = None if total[key] is None or row[key] is None else (
+                total[key] + calls * row[key])
         max_err = max(max_err, err)
+        act_err = max(act_err, row_act_err)
         calls_per_forward += calls
-        del x, x3, mean, var, ref_mean, ref_var
+        del x, x3, mean, var, ref_mean, ref_var, out, want
     check(calls_per_forward == 4 * plan.num_pools + 2, "K1 shape table is off")
-    return {
+    per = "one flagship forward (%d calls)" % calls_per_forward
+    stats_entry = {
         "name": "instance_norm_stats", "route": "cuda",
         "source": "deepwmh_tpu_torch/csrc/instance_norm_stats.cu",
         "replaces": "deepwmh_tpu/ops/pallas_kernels.py:127",
         "max_abs_err": max_err,
-        "ms": total["kernel_ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
+        "ms": total["kernel_ms"], "device_ms": total["kernel_device_ms"],
+        "plain_ms": total["plain_ms"],
+        "bound_ms": max(total["bytes_ms"], total["ops_ms"]),
         "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations",
-        "library_ms": total["library_ms"],
-        "per": "one flagship forward (%d calls)" % calls_per_forward,
+        "library_ms": total["library_ms"], "library_device_ms": total["library_device_ms"],
+        "per": per,
     }
+    act_entry = {
+        "name": "instance_norm_act", "route": "cuda",
+        "source": "deepwmh_tpu_torch/csrc/instance_norm_act.cu",
+        # the pass that consumes K1's statistics (the JAX package leaves it
+        # to XLA beside the Pallas call)
+        "replaces": "deepwmh_tpu/ops/pallas_kernels.py:127",
+        "max_abs_err": act_err,
+        "ms": total["act_ms"], "plain_ms": total["act_plain_ms"],
+        "bound_ms": total["act_bytes_ms"], "bound_by": "bytes",
+        # no one PyTorch call normalizes with given statistics and applies
+        # the leaky ReLU
+        "library_ms": None,
+        "per": per,
+    }
+    return stats_entry, act_entry
 
 
 def _timed(name, fn, times):
@@ -360,9 +470,10 @@ def phase_main_path(kernels, work, smi):
 
     blocks = 4 * plan.num_pools + 2
     expect = len(cases) * len(ALL_FLIPS) * blocks
-    check(launches["instance_norm_stats"] == expect,
-          "K1 launched %d times on the main path, expected %d (2 cases x 8 flips x %d blocks)"
-          % (launches["instance_norm_stats"], expect, blocks))
+    for name in ("instance_norm_stats", "instance_norm_act"):
+        check(launches[name] == expect,
+              "%s launched %d times on the main path, expected %d (2 cases x 8 flips x %d "
+              "blocks)" % (name, launches[name], expect, blocks))
 
     fracs = {}
     for case in cases:
@@ -439,6 +550,7 @@ def sweep_rate(plan, profile, sweep_s):
 
 
 _KERNEL_GROUPS = (
+    ("k1_apply", ("inorm_act",)),  # ahead of k1, whose key it contains
     ("k1", ("inorm_",)),
     ("conv", ("conv", "xmma", "cudnn", "implicit", "gemm", "fprop", "dgrad", "wgrad", "sm90")),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce", "cat", "copy")),
@@ -514,10 +626,11 @@ def phase_card_vs_cpu(kernels, work):
             for dev in (DEVICE, "cpu"):
                 model, p = load_released_model(pkg, device=dev, dtype=torch.float32)
                 pred = SlidingWindowPredictor(model, p, mode=mode, device=dev)
-                before = kernels.instance_norm_stats.launches
+                before = (kernels.instance_norm_stats.launches, kernels.instance_norm_act.launches)
                 outs[dev] = [o.cpu().numpy() for o in pred.predict_case_full(vol, spacing, apply_n4=True)]
                 if dev == DEVICE:
-                    check(kernels.instance_norm_stats.launches > before,
+                    check(kernels.instance_norm_stats.launches > before[0]
+                          and kernels.instance_norm_act.launches > before[1],
                           "card run of mode %s launched no K1" % mode)
             (pre_g, seg_g, s3_g, fov_g, fg_g), (pre_c, seg_c, s3_c, fov_c, fg_c) = outs[DEVICE], outs["cpu"]
             row = {
@@ -602,18 +715,69 @@ def median3_library(vol):
     return win.reshape(D, H, W, 27).median(-1).values
 
 
+def _cu_constant(source: str, name: str) -> int:
+    """An integer ``constexpr`` of a kernel source, as built."""
+    from deepwmh_tpu_torch.ops.kernels import CSRC_DIR
+
+    with open(os.path.join(CSRC_DIR, source)) as f:
+        return int(re.search(r"constexpr int %s = (\d+);" % name, f.read()).group(1))
+
+
+def median3_minmax_executed(kernels, shape) -> int:
+    """min/max instructions K2 executes on ``shape``: per thread (a lane of
+    a 32-wide warp on an existing row y) two slabs ahead of its walk along
+    z, then per step of two outputs two slabs, a pair and two selects."""
+    ops = kernels.median27_shared_ops()
+    chunk = _cu_constant("median3.cu", "kChunk")
+    D, H, W = shape
+    per_column = 0
+    for z0 in range(0, D, chunk):
+        steps = -(-min(chunk, D - z0) // 2)
+        per_column += (2 + 2 * steps) * ops["plane"] + steps * (ops["pair"] + 2 * ops["select"])
+    return per_column * H * 32 * (-(-W // 32))
+
+
+def fmnmx_rate(kernels) -> dict:
+    """The card's f32 min/max issue rate, from csrc/fmnmx_rate.cu (64
+    min/max per round per thread on every SM)."""
+    import ctypes
+
+    import torch
+
+    lib_path = kernels.build(["fmnmx_rate.cu"])["fmnmx_rate.cu"]
+    lib = ctypes.CDLL(lib_path)
+    lib.fmnmx_rate.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.fmnmx_rate.restype = ctypes.c_int
+    out = torch.empty(1, device=DEVICE)
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count * 8
+    threads, rounds = 256, 4096
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        check(lib.fmnmx_rate(out.data_ptr(), blocks, threads, rounds, 0.5, stream) == 0,
+              "the FMNMX probe did not launch")
+
+    ms = cuda_ms(run, iters=5)
+    ops = 64 * rounds * blocks * threads
+    return {"fmnmx_per_s": ops / (ms / 1e3), "probe_ms": ms,
+            "probe_sass_fmnmx": sass_count(lib_path, "FMNMX")}
+
+
 def phase_k2(kernels):
     """K2 against its plain version (value equality) and the unfold+median
-    library route at the flagship stage-1 call, an odd shape and 1x1x1.
-    Returns the kernels-line entry, timed at the flagship shape (one call
-    per stage-1 case)."""
+    library route at the flagship stage-1 call, an odd shape and 1x1x1,
+    beside the card's measured min/max rate. Returns the kernels-line entry,
+    timed at the flagship shape (one call per stage-1 case)."""
     import torch
 
     k2 = kernels.median3
-    # the bound counts the network's live min/max; the built kernel's SASS
-    # should hold as many FMNMX (one output per thread)
-    ops = kernels.median27_minmax_ops()
+    rate = fmnmx_rate(kernels)
+    shared = kernels.median27_shared_ops()
+    # the SASS holds the walk's two leading slabs once and, in its loop,
+    # two slabs, a pair and two selects for two outputs
     fmnmx = sass_count(kernels.library_path(k2.source), "FMNMX")
+    sass_per_output = None if fmnmx is None else (fmnmx - 2 * shared["plane"]) / 2
     entry = None
     for i, shape in enumerate(K2_SHAPES):
         vol = signed_volume(shape, seed=10 + i)
@@ -625,21 +789,32 @@ def phase_k2(kernels):
         check(torch.equal(got, want), "K2 differs from its plain version at %s" % (shape,))
         check(torch.equal(lib, want), "the library route differs at %s" % (shape,))
         n = vol.numel()
+        executed = median3_minmax_executed(kernels, shape)
         row = {
             "kernel_ms": cuda_ms(lambda: k2(vol)),
             "plain_ms": cuda_ms(lambda: kernels.median3_reference(vol)),
             "library_ms": cuda_ms(lambda: median3_library(vol)),
             # each voxel read once and written once
             "bytes_ms": 8 * n / HBM_BYTES_PER_S * 1e3,
-            # min/max instructions at the f32 non-FMA rate
-            "ops_ms": ops * n / (F32_FLOP_PER_S / 2) * 1e3,
+            # the min/max this kernel executes on this shape, at the f32
+            # non-FMA rate (half the FMA-counted peak, the yardstick of the first
+            # K2 design's bound)
+            "ops_ms": executed / (F32_FLOP_PER_S / 2) * 1e3,
+            # the first K2 design's count: 520 min/max per voxel at the same rate
+            "ops_ms_520": kernels.median27_minmax_ops() * n / (F32_FLOP_PER_S / 2) * 1e3,
+            # the executed min/max at the rate measured on this card
+            "ops_ms_measured_rate": executed / rate["fmnmx_per_s"] * 1e3,
         }
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
         err = float((got - want).abs().max())
-        emit({"phase": "k2", "shape": list(shape), "minmax_per_voxel": ops,
-              "sass_fmnmx": fmnmx,
-              "max_abs_err": err, "library_route": "F.pad + 3x unfold + torch.median(dim=-1)",
-              **row})
+        emit({"phase": "k2", "shape": list(shape),
+              "minmax_per_voxel_pr2": kernels.median27_minmax_ops(),
+              "minmax_per_output": shared["per_output"],
+              "minmax_executed_per_output": executed / n,
+              "outputs_per_thread": _cu_constant("median3.cu", "kChunk"),
+              "sass_fmnmx": fmnmx, "sass_minmax_per_output": sass_per_output,
+              **rate, "max_abs_err": err,
+              "library_route": "F.pad + 3x unfold + torch.median(dim=-1)", **row})
         if shape == FLAGSHIP_SHAPE:
             entry = {
                 "name": "median3", "route": "cuda",
@@ -648,6 +823,7 @@ def phase_k2(kernels):
                 "max_abs_err": err, "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"],
                 "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations",
+                "bound_ms_520": max(row["bytes_ms"], row["ops_ms_520"]),
                 "library_ms": row["library_ms"],
                 "per": "one flagship stage-1 call, %dx%dx%d" % shape,
             }
@@ -821,7 +997,7 @@ def main() -> int:
           "deepwmh_tpu_torch imported from outside this checkout")
     t_start = time.perf_counter()
     smi = phase_device(kernels)
-    k1_entry = phase_k1(kernels, default_plan_1mm_iso())
+    k1_entry, act_entry = phase_k1(kernels, default_plan_1mm_iso())
     k2_entry = phase_k2(kernels)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=HERE) as work:
         launches, flair = phase_main_path(kernels, work, smi)
@@ -829,13 +1005,16 @@ def main() -> int:
         stage1_launches = phase_stage1(kernels, work, smi)
     phase_postproc_exact(flair)
     phase_stage1_card_vs_cpu(kernels)
-    # each kernel's launches on its own path: K1 on predict, K2 on stage-1
+    # each kernel's launches on its own path: K1's two on predict, K2 on
+    # stage-1
     k1_entry["launches"] = launches["instance_norm_stats"]
+    act_entry["launches"] = launches["instance_norm_act"]
     k2_entry["launches"] = stage1_launches["median3"]
-    check(set(launches) == set(stage1_launches) == {"instance_norm_stats", "median3"},
+    check(set(launches) == set(stage1_launches)
+          == {"instance_norm_stats", "instance_norm_act", "median3"},
           "unlisted kernels: %s" % sorted(launches))
     emit({"phase": "done", "total_s": time.perf_counter() - t_start, "nvidia_smi": smi})
-    emit({"kernels": [k1_entry, k2_entry]})
+    emit({"kernels": [k1_entry, act_entry, k2_entry]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

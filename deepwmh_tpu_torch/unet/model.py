@@ -6,8 +6,8 @@ a 1x1x1 head at every level; bf16 compute with f32 parameters and f32
 normalisation statistics. The module takes and returns torch's NCDHW, with
 activations kept in ``torch.channels_last_3d`` memory: then
 ``x.permute(0, 2, 3, 4, 1)`` is the JAX layout [N, D, H, W, C] with no copy,
-and the instance-norm statistics kernel (K1, ``ops/kernels.py``) reads the
-activation in place.
+and the instance-norm statistics kernel (K1, ``ops/kernels.py``) and the
+normalize + leaky ReLU pass that consumes them read the activation in place.
 
 The flax model's depth-decomposed full-resolution conv is a TPU lowering of
 the same math; here every conv is one ``F.conv3d``. Parameter names map
@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepwmh_tpu_torch.ops.kernels import instance_norm_stats
+from deepwmh_tpu_torch.ops.kernels import instance_norm_act, instance_norm_stats
 from deepwmh_tpu_torch.unet.plan import Plan, features_per_stage
 
 LRELU_SLOPE = 0.01
@@ -82,7 +82,8 @@ def _leaky_slope(dtype) -> float:
 
 
 class ConvNormAct(nn.Module):
-    """Conv -> instance norm (statistics from K1) -> leaky ReLU."""
+    """Conv -> instance norm (statistics from K1) -> leaky ReLU (K1's apply
+    pass)."""
 
     def __init__(self, cin, cout, kernel, stride=(1, 1, 1),
                  dtype=torch.bfloat16, pad_style="same"):
@@ -91,19 +92,18 @@ class ConvNormAct(nn.Module):
         self.conv = Conv3D(cin, cout, kernel, stride, dtype, pad_style)
         self.norm_weight = nn.Parameter(torch.ones(cout))
         self.norm_bias = nn.Parameter(torch.zeros(cout))
+        self.slope = _leaky_slope(dtype)
 
     def forward(self, x):
-        y = self.conv(x)
-        n, c = y.shape[:2]
-        mean, var = instance_norm_stats(y.permute(0, 2, 3, 4, 1))
+        # [N, D, H, W, C] view of the channels-last conv output, no copy
+        y = self.conv(x).permute(0, 2, 3, 4, 1)
+        mean, var = instance_norm_stats(y)
         # flax GroupNorm: var clamped at 0, then
-        # (x - mean) * (scale * rsqrt(var + eps)) + bias in f32, cast down
+        # (x - mean) * (scale * rsqrt(var + eps)) + bias in f32, cast down,
+        # then the leaky ReLU: one pass (K1's apply kernel on the card)
         mul = torch.rsqrt(var.clamp_min(0.0) + NORM_EPS) * self.norm_weight
-        bc = (n, c, 1, 1, 1)
-        # in place on the one f32 copy: saves two activation-sized buffers
-        z = y.float()
-        z.sub_(mean.view(bc)).mul_(mul.view(bc)).add_(self.norm_bias.view(1, c, 1, 1, 1))
-        return F.leaky_relu(z.to(self.dtype), _leaky_slope(self.dtype))
+        out = instance_norm_act(y, mean, mul, self.norm_bias, self.slope)
+        return out.permute(0, 4, 1, 2, 3)
 
 
 class UNet3D(nn.Module):

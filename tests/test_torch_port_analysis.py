@@ -337,6 +337,120 @@ def test_median27_op_count():
     assert kernels.median27_minmax_ops() == 520
 
 
+def test_median27_shared_op_count():
+    # per z-plane two column sorts (3 exchanges each) and a 9-way merge (18
+    # exchanges); per pair of outputs one 9 + 9 merge pruned to ranks 4..13
+    # (48 of its 60 min/max); per output a select of 9 mins and 9 maxes
+    ops = kernels.median27_shared_ops()
+    assert (ops["column"], ops["slab"], ops["pair"], ops["select"]) == (6, 36, 48, 18)
+    assert ops["per_output"] == 90 < kernels.median27_minmax_ops()
+
+
+def _ce_bits(w, i, j):
+    # a compare-exchange on 0/1 values: min is AND, max is OR
+    w[i], w[j] = w[i] & w[j], w[i] | w[j]
+
+
+def _median27_fails(column=kernels.MEDIAN27_COLUMN, slab=kernels.MEDIAN27_SLAB,
+                    pair=kernels.MEDIAN27_PAIR, chunk_bits=21):
+    """K2's scheme on every 0/1 input of its 27 wires, 64 inputs to a uint64
+    word: columns sorted, slabs merged, slabs 0 and 1 paired, selected
+    against slab 2. By the 0-1 principle (min/max networks commute with
+    every threshold) it selects rank 13 of any input iff it does so on
+    each of the 2^27 0/1 inputs, where rank 13 is 1 iff 14 or more inputs
+    are 1. Returns the first failing block of 2^chunk_bits inputs, or None."""
+    n_in, words = 27, 1 << (chunk_bits - 6)
+    ones, zero = np.uint64(2**64 - 1), np.uint64(0)
+    word_idx = np.arange(words, dtype=np.uint64)
+    # wire i < 6 alternates inside a word; wires below chunk_bits follow the
+    # word index; the others are constant within a block
+    in_word = [np.uint64(sum(1 << b for b in range(64) if (b >> i) & 1)) for i in range(6)]
+    by_word = [np.where((word_idx >> np.uint64(i - 6)) & np.uint64(1), ones, zero)
+               for i in range(6, chunk_bits)]
+    local = np.arange(1 << chunk_bits, dtype=np.uint32)
+    local_ones = sum(((local >> i) & 1).astype(np.uint8) for i in range(chunk_bits))
+    for block in range(1 << (n_in - chunk_bits)):
+        wire = [np.full(words, v, np.uint64) for v in in_word] + by_word + [
+            np.full(words, ones if (block >> (i - chunk_bits)) & 1 else zero, np.uint64)
+            for i in range(chunk_bits, n_in)]
+        slabs = []
+        for dz in range(3):
+            cols = []
+            for dx in range(3):
+                col = [wire[dz * 9 + dy * 3 + dx] for dy in range(3)]
+                for i, j in column:
+                    _ce_bits(col, i, j)
+                cols += col
+            for i, j in slab:
+                _ce_bits(cols, i, j)
+            slabs.append([cols[i] for i in kernels.MEDIAN27_SLAB_ORDER])
+        w = slabs[0] + slabs[1]
+        for i, j in pair:
+            _ce_bits(w, i, j)
+        p = {r: w[kernels.MEDIAN27_PAIR_ORDER[r]] for r in kernels.MEDIAN27_PAIR_RANKS}
+        got = p[kernels.MEDIAN27_SELECT_FLOOR]
+        for i, j in kernels.MEDIAN27_SELECT_TERMS:
+            got = got | (p[i] & slabs[2][j])
+        want = np.packbits(local_ones + bin(block).count("1") >= 14,
+                           bitorder="little").view(np.uint64)
+        if not np.array_equal(got, want):
+            return block
+    return None
+
+
+def test_median27_scheme_selects_rank_13_on_every_01_input():
+    assert _median27_fails() is None
+
+
+@pytest.mark.parametrize("stage,k", [("column", 0), ("column", 2), ("slab", 0), ("slab", 9),
+                                     ("pair", 0), ("pair", 15), ("pair", 28)])
+def test_median27_proof_catches_a_broken_network(stage, k):
+    # the proof has teeth: without one live exchange the scheme fails (the
+    # pair's last exchange only orders ranks 16 and 17, which nothing reads)
+    ces = getattr(kernels, "MEDIAN27_" + stage.upper())
+    assert _median27_fails(**{stage: ces[:k] + ces[k + 1:]}) is not None
+
+
+def test_median27_header_is_generated_from_the_lists():
+    with open(os.path.join(kernels.CSRC_DIR, "median27_network.h")) as f:
+        assert f.read() == kernels.median27_header()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_median27_scheme_on_signed_values(seed):
+    # the same composition on f32 windows (negatives, +-0.0, ties) against
+    # torch's rank 13, value for value
+    rng = np.random.RandomState(seed)
+    v = rng.randn(4096, 27).astype(np.float32)
+    v[rng.rand(*v.shape) < 0.3] = 0.0
+    v[rng.rand(*v.shape) < 0.15] = -0.0
+    v[:, rng.randint(27)] = v[:, rng.randint(27)]
+    w = [torch.from_numpy(v[:, k]) for k in range(27)]
+
+    def ce(a, i, j):
+        a[i], a[j] = torch.minimum(a[i], a[j]), torch.maximum(a[i], a[j])
+
+    slabs = []
+    for dz in range(3):
+        cols = []
+        for dx in range(3):
+            col = [w[dz * 9 + dy * 3 + dx] for dy in range(3)]
+            for i, j in kernels.MEDIAN27_COLUMN:
+                ce(col, i, j)
+            cols += col
+        for i, j in kernels.MEDIAN27_SLAB:
+            ce(cols, i, j)
+        slabs.append([cols[i] for i in kernels.MEDIAN27_SLAB_ORDER])
+    pw = slabs[0] + slabs[1]
+    for i, j in kernels.MEDIAN27_PAIR:
+        ce(pw, i, j)
+    p = {r: pw[kernels.MEDIAN27_PAIR_ORDER[r]] for r in kernels.MEDIAN27_PAIR_RANKS}
+    got = p[kernels.MEDIAN27_SELECT_FLOOR]
+    for i, j in kernels.MEDIAN27_SELECT_TERMS:
+        got = torch.maximum(got, torch.minimum(p[i], slabs[2][j]))
+    assert torch.equal(got, torch.sort(torch.from_numpy(v), dim=1).values[:, 13])
+
+
 # ---------------------------------------------------------------- the core
 
 

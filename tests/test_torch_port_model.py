@@ -109,3 +109,111 @@ def test_init_weights_is_seeded():
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
         assert torch.isfinite(va).all()
+
+
+# ------------------------------------------------------------ one ConvNormAct
+
+
+def _conv_norm_act_pair(cin, cout, dtype_j, dtype_t, fused, seed):
+    """flax's ConvNormAct and the port's on the same (noisy) parameters."""
+    from deepwmh_tpu.unet.model import ConvNormAct as JConvNormAct
+    from deepwmh_tpu_torch.unet.checkpoint import _conv_to_torch
+
+    jblock = JConvNormAct(features=cout, kernel=(3, 3, 3), dtype=dtype_j, fused_stats=fused)
+    x0 = jnp.zeros((1, 6, 6, 8, cin), dtype_j)
+    params = jblock.init(jax.random.PRNGKey(seed), x0)["params"]
+    rng = np.random.RandomState(seed)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + 0.1 * rng.randn(*a.shape).astype(np.float32), params)
+    tblock = tmodel.ConvNormAct(cin, cout, (3, 3, 3), dtype=dtype_t)
+    with torch.no_grad():
+        tblock.conv.weight.copy_(torch.from_numpy(_conv_to_torch(params["Conv_0"]["kernel"])))
+        tblock.conv.bias.copy_(torch.from_numpy(params["Conv_0"]["bias"]))
+        tblock.norm_weight.copy_(torch.from_numpy(params["GroupNorm_0"]["scale"]))
+        tblock.norm_bias.copy_(torch.from_numpy(params["GroupNorm_0"]["bias"]))
+    return jblock, params, tblock.eval()
+
+
+def _pallas_stats(monkeypatch):
+    """Send the flax fused path's statistics through the Pallas kernel in
+    interpret mode (on the CPU it would take the XLA reduction)."""
+    from deepwmh_tpu.ops.pallas_kernels import instance_norm_stats_pallas
+    from deepwmh_tpu.unet import model as jmodel
+
+    monkeypatch.setattr(jmodel, "_instance_norm_stats",
+                        lambda x: instance_norm_stats_pallas(x, block_rows=16, interpret=True))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_conv_norm_act_f32_matches_flax(monkeypatch, fused):
+    # f32 atol 2e-4 / rtol 1e-3 (tests/test_torch_convert.py): the convs'
+    # and the statistics' sums in other orders
+    if fused:
+        _pallas_stats(monkeypatch)
+    jblock, params, tblock = _conv_norm_act_pair(4, 32, jnp.float32, torch.float32, fused, 0)
+    x = np.random.RandomState(1).randn(2, 6, 6, 8, 4).astype(np.float32)
+    want = np.asarray(jblock.apply({"params": params}, jnp.asarray(x)))
+    with torch.no_grad():
+        got = tblock(torch.from_numpy(x).permute(0, 4, 1, 2, 3)
+                     .contiguous(memory_format=torch.channels_last_3d))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 4, 1).numpy(), want, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_conv_norm_act_bf16_argmax_matches_flax(monkeypatch, fused):
+    # bf16: channel argmax agreement > 0.98 (tests/test_torch_convert.py)
+    if fused:
+        _pallas_stats(monkeypatch)
+    jblock, params, tblock = _conv_norm_act_pair(8, 32, jnp.bfloat16, torch.bfloat16, fused, 2)
+    x = np.random.RandomState(3).randn(1, 6, 6, 8, 8).astype(np.float32)
+    want = np.asarray(jblock.apply({"params": params}, jnp.asarray(x, jnp.bfloat16)), np.float32)
+    with torch.no_grad():
+        got = tblock(torch.from_numpy(x).permute(0, 4, 1, 2, 3)
+                     .contiguous(memory_format=torch.channels_last_3d))
+    assert got.dtype == torch.bfloat16
+    agree = float(np.mean(got.float().permute(0, 2, 3, 4, 1).numpy().argmax(-1) == want.argmax(-1)))
+    assert agree > 0.98, agree
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_norm_act_cpu_bits_unchanged(dtype):
+    """On the CPU the block gives the bits of the chain it ran before the
+    apply pass became a kernel: conv, K1's plain statistics, then f32
+    subtract, multiply, add in place, cast, leaky ReLU."""
+    torch.manual_seed(0)
+    block = tmodel.ConvNormAct(8, 16, (3, 3, 3), dtype=dtype).eval()
+    with torch.no_grad():
+        block.conv.weight.normal_()
+        block.norm_weight.uniform_(0.5, 1.5)
+        block.norm_bias.normal_()
+        x = torch.randn(2, 8, 5, 6, 7).contiguous(memory_format=torch.channels_last_3d)
+        got = block(x)
+        y = block.conv(x)
+        mean, var = kernels.instance_norm_stats_reference(y.permute(0, 2, 3, 4, 1))
+        mul = torch.rsqrt(var.clamp_min(0.0) + tmodel.NORM_EPS) * block.norm_weight
+        bc = (2, 16, 1, 1, 1)
+        z = y.float()
+        z.sub_(mean.view(bc)).mul_(mul.view(bc)).add_(block.norm_bias.view(1, 16, 1, 1, 1))
+        want = torch.nn.functional.leaky_relu(z.to(dtype), tmodel._leaky_slope(dtype))
+    assert torch.equal(got, want)
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+
+
+def test_apply_pass_reads_activations_in_place(monkeypatch):
+    """Every ConvNormAct hands the apply pass the same contiguous
+    [N, D, H, W, C] view it hands K1, with its [N, C] statistics."""
+    jplan, plan, shape = _plans("even", "same")
+    seen = []
+
+    def record(x, mean, mul, bias, slope):
+        seen.append((tuple(x.shape), x.is_contiguous(), tuple(mean.shape), tuple(mul.shape),
+                     tuple(bias.shape)))
+        return kernels.instance_norm_act(x, mean, mul, bias, slope)
+
+    monkeypatch.setattr(tmodel, "instance_norm_act", record)
+    m = tmodel.init_weights(tmodel.UNet3D(plan), torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        m(torch.randn(1, 1, *shape))
+    assert len(seen) == 4 * plan.num_pools + 2
+    for xs, contiguous, ms, ws, bs in seen:
+        assert contiguous and ms == ws == (xs[0], xs[-1]) and bs == (xs[-1],)
