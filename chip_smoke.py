@@ -26,14 +26,28 @@ Phases, each printing JSON lines to stdout:
    its bound, its min/max per output (counted and from the SASS) and the
    card's min/max rate measured by the probe;
 6. stage1: stage-1 NLL lesion analysis through ``LesionAnalyzer`` at
-   192x224x192 1 mm with K = 10 synthetic registered references (two
-   cases), K2's launches from that run, the artifacts checked against the
+   192x224x192 1 mm with K = 10 synthetic registered references (one
+   case), K2's launches from that run, the artifacts checked against the
    planted lesions, then the device stages and host I/O of one case;
 7. postproc_exact: spark removal and the brain mask on the card equal to the
    CPU's at 192x224x192;
 8. stage1_card_vs_cpu: the stage-1 core on the card against the CPU at
    96x112x96, 2 mm, K = 4;
-9. kernels: one line listing each kernel with its launches on its path
+9. serve: ``python -m deepwmh_tpu_torch.cli.serve --once`` in a subprocess
+   over a spool of three flagship FLAIRs and a corrupt request (exit 1, the
+   receipts, the quarantine, the artifacts), then in-process a burst of two
+   (``SpoolServer(batch_max=2)``) against the same two served one by one:
+   receipts, mask agreement, walls, K1 launches per volume, peak memory;
+10. train: ``Trainer.fit`` at the flagship plan (patch 128x160x128, batch 2,
+   augmentation on) on three synthetic preprocessed cases with planted
+   lesions, two epochs of six steps with a one-case validation set: finite
+   losses, the four checkpoints read back, a second fit that resumes at the
+   end, ``release_model`` served by the port's predictor on the card, no
+   K1 launch; then seconds per step, peak memory with and without remat and
+   one step's device time by section and kernel group;
+11. train_card_vs_cpu: one Trainer step from the same weights and batch on
+   the card and on the CPU (small plan, f32, no TF32, no augmentation);
+12. kernels: one line listing each kernel with its launches on its path
    (K1's statistics and apply kernels on the predict path, K2 on the
    stage-1 path).
 
@@ -352,6 +366,24 @@ def phase_k1(kernels, plan):
         check(torch.equal(out, want), "K1's apply pass differs from the plain chain at %s"
               % ([n, m, c],))
         row_act_err = float((out.float() - want.float()).abs().max())
+        # the burst's shape: two samples of other moments in one [2, M, C]
+        # launch, each sample's statistics and output against the plain version
+        x2 = torch.cat([x, (torch.randn(x.shape, generator=gen, device=DEVICE) * 1.5
+                            - 1.0).to(torch.bfloat16)])
+        mean2, var2 = stats(x2)
+        ref_mean2, ref_var2 = kernels.instance_norm_stats_reference(x2)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(mean2, ref_mean2, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(var2, ref_var2, atol=1e-4, rtol=1e-4)
+        err2 = max(float((mean2 - ref_mean2).abs().max()), float((var2 - ref_var2).abs().max()))
+        mul2 = torch.rsqrt(var2.clamp_min(0.0) + 1e-5)
+        out2 = act(x2, mean2, mul2, bias, slope)
+        want2 = kernels.instance_norm_act_reference(x2, mean2, mul2, bias, slope)
+        torch.cuda.synchronize()
+        check(torch.equal(out2, want2), "K1's apply pass differs from the plain chain at %s"
+              % ([2, m, c],))
+        err = max(err, err2)
+        del x2, mean2, var2, ref_mean2, ref_var2, mul2, out2, want2
         x3 = x.view(n, m, c)
         pair = {"kernel": lambda: stats(x),
                 "library": lambda: torch.var_mean(x3, dim=1, correction=0)}
@@ -531,7 +563,7 @@ def phase_main_path(kernels, work, smi):
           "stage_s": times, "stage_sum_s": sum(times.values()), "host_io_s": io,
           "tta_sweep_profile": profile, "staged_vs_main_fov_agreement": agree,
           **sweep_rate(plan2, profile, times["tta_sweep"])})
-    return launches, vols[0]
+    return launches, vols[0], pkg
 
 
 def sweep_rate(plan, profile, sweep_s):
@@ -837,9 +869,10 @@ def _dice(a, b):
 
 def phase_stage1(kernels, work, smi):
     """Stage-1 NLL lesion analysis through LesionAnalyzer at the flagship
-    geometry with K = 10 references, two cases (the same cohort under two
-    names); K2's launch count is that of this run only. Then the same case
-    stage by stage for where the time goes."""
+    geometry with K = 10 references, one case (two until the serving and
+    training phases joined the script's time); K2's launch count is that of
+    this run only. Then the same case stage by stage for where the time
+    goes, which must give the same anomaly and threshold."""
     import torch
 
     from deepwmh_tpu_torch.core import nifti
@@ -849,7 +882,7 @@ def phase_stage1(kernels, work, smi):
     *inputs, lesions = write_cohort(os.path.join(work, "cohort"), FLAGSHIP_SHAPE,
                                     FLAGSHIP_SPACING, STAGE1_K, seed=0)
     setup_s = time.perf_counter() - t0
-    cases = ["case0", "case1"]
+    cases = ["case0"]
     out = os.path.join(work, "stage1")
 
     torch.cuda.reset_peak_memory_stats()
@@ -890,9 +923,7 @@ def phase_stage1(kernels, work, smi):
         a["dice_pp"] = _dice(pp, lesions > 0.5)
         check(a["dice_pp"] > 0.5, "%s: Dice %.3f against the planted lesions" % (case, a["dice_pp"]))
         arts[case] = a
-    first, second = arts[cases[0]], arts[cases[1]]
-    check(all(np.array_equal(first[k], second[k]) for k in STAGE1_ARTIFACTS + ("threshold",)),
-          "the same inputs gave two different results")
+    first = arts[cases[0]]
     avg = first["averaged_label"]
     in_cb = float((lesions * (avg == 2)).sum())
     check(in_cb > 0, "no planted lesion lies in the class-2 (median) region")
@@ -976,6 +1007,400 @@ def phase_stage1_card_vs_cpu(kernels):
           **row})
 
 
+# ---------------------------------------------------------------------- #
+# serving and training (no kernel of their own: serving runs K1's two
+# kernels through the predictor, training runs none)
+# ---------------------------------------------------------------------- #
+
+SERVE_ARTIFACTS = ("001_Preprocessed_Images/%s_0000.nii.gz", "002_Segmentations/001_raw/%s.nii.gz",
+                   "002_Segmentations/002_postproc_3mm/%s.nii.gz",
+                   "002_Segmentations/003_postproc_fov/%s.nii.gz")
+
+
+def _write_flair(path, seed):
+    from deepwmh_tpu_torch.core import nifti
+
+    hdr = nifti.NiftiHeader()
+    hdr.set_shape(FLAGSHIP_SHAPE)
+    hdr.set_zooms(FLAGSHIP_SPACING)
+    nifti.save_nifti(synthetic_flair(FLAGSHIP_SHAPE, seed=seed), hdr, path)
+
+
+def _served_pass(kernels, pkg, spool_files, out, batch_max, server_id):
+    """Copy ``spool_files`` into a fresh spool and drain it in this process
+    with SpoolServer(batch_max) on the model package ``pkg``; returns wall,
+    K1 launches, peak memory and the receipts."""
+    import torch
+
+    from deepwmh_tpu_torch.pipeline.serve import SpoolServer
+
+    spool = out + "_spool"
+    os.makedirs(spool)
+    for f in spool_files:
+        shutil.copyfile(f, os.path.join(spool, os.path.basename(f)))
+    srv = SpoolServer(spool, out, pkg, make_previews=False, server_id=server_id,
+                      settle_seconds=0.0, batch_max=batch_max, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = srv.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    check(result == (len(spool_files), 0), "%s drained %r" % (server_id, result))
+    receipts = {}
+    for f in spool_files:
+        case = os.path.basename(f)[: -len(".nii.gz")]
+        with open(os.path.join(spool, ".done", case + ".json")) as fh:
+            receipts[case] = json.load(fh)
+    return {"wall_s": wall, "launches": launches,
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}, receipts
+
+
+def phase_serve(kernels, work, pkg, smi):
+    """The port's serve CLI on a spool of three flagship FLAIRs and a corrupt
+    request (``--once`` must exit 1), then a burst of two in this process
+    against the same two requests served one by one."""
+    from deepwmh_tpu_torch.core import nifti
+    from deepwmh_tpu_torch.unet.infer import ALL_FLIPS
+    from deepwmh_tpu_torch.unet.plan import default_plan_1mm_iso
+
+    root = os.path.join(work, "serve")
+    spool, out = os.path.join(root, "spool"), os.path.join(root, "out")
+    os.makedirs(spool)
+    cases = ["req0", "req1", "req2"]
+    for i, case in enumerate(cases):
+        _write_flair(os.path.join(spool, case + ".nii.gz"), seed=10 + i)
+    with open(os.path.join(spool, "corrupt.nii.gz"), "wb") as f:
+        f.write(b"\x1f\x8b this is not a NIfTI volume")
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "deepwmh_tpu_torch.cli.serve", "-m", pkg, "-s", spool,
+           "-o", out, "--once", "--settle-seconds", "0", "--no-previews",
+           "--server-id", "smoke", "--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    cli_wall = time.perf_counter() - t0
+    check(proc.returncode == 1, "serve --once exited %d, expected 1 (the corrupt request):\n%s"
+          % (proc.returncode, (proc.stdout + proc.stderr)[-3000:]))
+    latencies = {}
+    for case in cases:
+        with open(os.path.join(spool, ".done", case + ".json")) as f:
+            r = json.load(f)
+        check(len(r.get("input_sha256", "")) == 64, "%s: receipt without input_sha256" % case)
+        latencies[case] = r["latency_s"]
+        for rel in SERVE_ARTIFACTS:
+            data = nifti.load_nifti_simple(os.path.join(out, rel % case))
+            check(data.shape == FLAGSHIP_SHAPE and np.isfinite(data).all(),
+                  "%s: %s shape %s or non-finite" % (case, rel, data.shape))
+    check(os.path.isfile(os.path.join(spool, ".failed", "corrupt.nii.gz"))
+          and os.path.isfile(os.path.join(spool, ".failed", "corrupt.err")),
+          "the corrupt request was not quarantined with its .err")
+    left = [f for f in os.listdir(spool) if f.endswith(".nii.gz")]
+    check(left == [], "requests left in the spool: %s" % left)
+    check(os.listdir(os.path.join(spool, ".work", "smoke")) == [], "claims left in .work")
+    served_s = sum(latencies.values())
+
+    # a burst of two against the same two one by one, in this process
+    pair = []
+    for i in range(2):
+        pair.append(os.path.join(root, "pair%d.nii.gz" % i))
+        _write_flair(pair[-1], seed=20 + i)
+    passes, receipts = {}, {}
+    for name, batch_max in (("burst", 2), ("solo", 1)):
+        passes[name], receipts[name] = _served_pass(
+            kernels, pkg, pair, os.path.join(root, name), batch_max, name)
+    per_volume = len(ALL_FLIPS) * (4 * default_plan_1mm_iso().num_pools + 2)
+    for name in passes:
+        bursts = {r.get("burst_size") for r in receipts[name].values()}
+        check(bursts == ({2} if name == "burst" else {None}),
+              "%s: receipts' burst_size %s" % (name, bursts))
+        # one by one, each volume takes its own launches; a burst's forward
+        # reads both volumes ([2, *spatial, C]) in one launch a block
+        want = per_volume * (1 if name == "burst" else 2)
+        for k in ("instance_norm_stats", "instance_norm_act"):
+            check(passes[name]["launches"][k] == want,
+                  "%s: %s launched %d times for two volumes, expected %d"
+                  % (name, k, passes[name]["launches"][k], want))
+    agreement = {}
+    for i in range(2):
+        for rel in SERVE_ARTIFACTS[1:]:
+            a, b = (nifti.load_nifti_simple(os.path.join(root, n, rel % ("pair%d" % i)))
+                    for n in ("burst", "solo"))
+            agreement["pair%d:%s" % (i, rel.split("/")[1])] = float((a == b).mean())
+    check(min(agreement.values()) > 0.999, "burst against one-case masks: %r" % agreement)
+    emit({"phase": "serve", "nvidia_smi": smi, "plan": "default_plan_1mm_iso",
+          "shape": list(FLAGSHIP_SHAPE), "tta_flips": len(ALL_FLIPS),
+          "cli_requests": len(cases) + 1, "cli_exit_code": proc.returncode,
+          "cli_wall_s": cli_wall, "latency_s": latencies,
+          "volumes_per_min_served": 60.0 * len(cases) / served_s,
+          "volumes_per_min_cli_wall": 60.0 * len(cases) / cli_wall,
+          "k1_launches_per_volume": {k: passes["solo"]["launches"][k] // 2
+                                     for k in ("instance_norm_stats", "instance_norm_act")},
+          "passes": passes, "burst_vs_solo_wall": passes["burst"]["wall_s"] / passes["solo"]["wall_s"],
+          "burst_vs_solo_mask_agreement": agreement})
+
+
+def remat_flops(plan, shape) -> int:
+    """Conv MACs x 2 of one batch-1 forward that remat computes again in the
+    backward pass: every ConvNormAct block of stages 0 and 1."""
+    from deepwmh_tpu_torch.unet.plan import features_per_stage
+
+    feats = features_per_stage(plan)
+    spatial = [tuple(shape)]
+    for k in plan.pool_kernels:
+        spatial.append(tuple(-(-a // int(s)) for a, s in zip(spatial[-1], k)))
+    macs = 0
+    cin = plan.in_channels
+    for i in range(plan.num_pools + 1):
+        vox, kv = math.prod(spatial[i]), math.prod(plan.conv_kernels[i])
+        if i <= 1:
+            macs += vox * kv * (cin + feats[i]) * feats[i]  # encoder pair
+            if i < plan.num_pools:
+                macs += vox * kv * 3 * feats[i] * feats[i]  # decoder pair (2C -> C, C -> C)
+        cin = feats[i]
+    return 2 * macs
+
+
+_TRAIN_GROUPS = (
+    ("conv_dgrad", ("dgrad",)),
+    ("conv_wgrad", ("wgrad",)),
+    ("conv_fwd", ("conv", "xmma", "cudnn", "implicit", "gemm", "fprop", "sm90")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce", "cat", "copy", "index",
+                     "softmax", "where")),
+)
+
+
+def _profiled(fn, by_name=None):
+    """fn() under torch.profiler: (result, {group: device ms}, wall ms);
+    each kernel's device ms is added to ``by_name`` when given."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = {g: 0.0 for g, _ in _TRAIN_GROUPS}
+    groups["other"] = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            low = e.name.lower()
+            g = next((g for g, keys in _TRAIN_GROUPS if any(k in low for k in keys)), "other")
+            groups[g] += e.time_range.elapsed_us() / 1e3
+            if by_name is not None:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out, groups, wall
+
+
+def _train_cohort(shape, seed):
+    """A preprocessed training case: synthetic_cohort's target (planted
+    lesions) z-scored over the volume, and its lesion mask as the label."""
+    target, _refs, _l1, _l2, lesions = synthetic_cohort(shape, 1, seed)
+    image = (target - target.mean()) / max(float(target.std()), 1e-8)
+    return image.astype(np.float32), lesions.astype(np.uint8)
+
+
+def phase_train(kernels, work, smi):
+    """Trainer.fit at the flagship plan, then the step taken apart."""
+    import torch
+
+    from deepwmh_tpu_torch.unet import checkpoint as ckpt
+    from deepwmh_tpu_torch.unet.data import SegDataset
+    from deepwmh_tpu_torch.unet.infer import ALL_FLIPS, SlidingWindowPredictor
+    from deepwmh_tpu_torch.unet.model import UNet3D
+    from deepwmh_tpu_torch.unet.plan import default_plan_1mm_iso
+    from deepwmh_tpu_torch.unet.release import load_released_model, release_model
+    from deepwmh_tpu_torch.unet.train import TrainConfig, Trainer
+
+    plan = default_plan_1mm_iso()
+    t0 = time.perf_counter()
+    train_ds, val_ds = SegDataset(plan.patch_size), SegDataset(plan.patch_size)
+    for i in range(3):
+        train_ds.add_case("train%d" % i, *_train_cohort(FLAGSHIP_SHAPE, seed=30 + i))
+    val_ds.add_case("val0", *_train_cohort(FLAGSHIP_SHAPE, seed=40))
+    setup_s = time.perf_counter() - t0
+    cfg = TrainConfig(epochs=2, batches_per_epoch=6, batch_size=2, augment=True,
+                      save_every_epoch=True)
+    out = os.path.join(work, "train")
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = Trainer(plan, cfg, out, device=DEVICE)
+    _, best = trainer.fit(train_ds, val_ds)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    fit_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(v == 0 for v in fit_launches.values()),
+          "the training path launched a kernel: %r" % fit_launches)
+    losses = [v for h in trainer.history for v in h["losses"]]
+    check(len(losses) == 12 and all(math.isfinite(v) for v in losses),
+          "train losses: %r" % losses)
+    reference = UNet3D(plan)
+    for name in (ckpt.MODEL_LATEST, ckpt.MODEL_BEST, "model_ep_0001", "model_ep_0002"):
+        params, opt_state, meta = ckpt.load_checkpoint(out, name)
+        reference.load_state_dict(ckpt.params_from_flax(params), strict=True)
+        check(all(torch.isfinite(p).all() for p in reference.parameters()),
+              "%s has non-finite weights" % name)
+        check((opt_state is not None) == (name == ckpt.MODEL_LATEST),
+              "%s: optimizer state %s" % (name, "missing" if opt_state is None else "present"))
+    again = Trainer(plan, cfg, out, device=DEVICE)
+    again.fit(train_ds, val_ds)
+    check(again.history == [], "a second fit trained again: %r" % again.history)
+
+    # the trained model handed to serving
+    pkg = release_model(out, plan, os.path.join(work, "train_release"), make_tarball=True)
+    model, plan2 = load_released_model(os.path.dirname(pkg), device=DEVICE)
+    predictor = SlidingWindowPredictor(model, plan2, device=DEVICE)
+    for k in kernels.KERNELS.values():
+        k.launches = 0
+    pred = predictor.predict_case_full(synthetic_flair(FLAGSHIP_SHAPE, seed=50),
+                                       FLAGSHIP_SPACING, apply_n4=True)
+    torch.cuda.synchronize()
+    check(all(tuple(o.shape) == FLAGSHIP_SHAPE and torch.isfinite(o.float()).all() for o in pred),
+          "the released model's prediction is malformed")
+    per_volume = len(ALL_FLIPS) * (4 * plan.num_pools + 2)
+    check(kernels.instance_norm_stats.launches == per_volume
+          and kernels.instance_norm_act.launches == per_volume,
+          "the released model made %d/%d K1 launches, expected %d each"
+          % (kernels.instance_norm_stats.launches, kernels.instance_norm_act.launches,
+             per_volume))
+    del model, predictor, pred, again
+
+    # the step taken apart, on one batch
+    np_rng = np.random.RandomState(0)
+    images, labels = trainer._to_device(*train_ds.sample_batch(np_rng, cfg.batch_size,
+                                                               cfg.oversample_fg))
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    for k in kernels.KERNELS.values():
+        k.launches = 0
+    step_s = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(images, labels, 1e-4, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        check(math.isfinite(float(loss)), "a timed step's loss is %r" % float(loss))
+    check(all(k.launches == 0 for k in kernels.KERNELS.values()),
+          "the train step launched a kernel")
+    peak = {}
+    for remat in (True, False):
+        trainer.model.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        noaug = trainer.loss(images, labels)
+        grads = torch.autograd.grad(noaug, trainer.params, allow_unused=True)
+        torch.cuda.synchronize()
+        peak["remat_on" if remat else "remat_off"] = torch.cuda.max_memory_allocated() / 1e9
+        del noaug, grads
+    trainer.model.remat = True
+
+    sections, by_name = {}, {}
+    _, sections["augment"], _ = _profiled(lambda: trainer.augment(images, labels, gen), by_name)
+    loss, sections["forward"], _ = _profiled(lambda: trainer.loss(images, labels), by_name)
+    grads, sections["backward"], _ = _profiled(
+        lambda: torch.autograd.grad(loss, trainer.params, allow_unused=True), by_name)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainer.params, grads)]
+    _, sections["optimizer"], _ = _profiled(lambda: trainer.update(grads, 1e-4), by_name)
+    section_ms = {k: sum(v.values()) for k, v in sections.items()}
+    step_dev_ms = sum(section_ms.values())
+    groups = {g: sum(sections[s][g] for s in sections) for g in sections["forward"]}
+
+    # the warp alone (order 1 on the image, order 0 on the label) on one patch
+    from deepwmh_tpu_torch.ops.warp import affine_warp, rotation_matrix
+
+    mat = torch.cat([rotation_matrix([0.3, -0.2, 0.1]).T / 1.1, torch.zeros(3, 1)], dim=1)
+    center = [(s - 1) / 2.0 for s in plan.patch_size]
+    warp_ms = cuda_ms(lambda: (affine_warp(images[0], mat, order=1, center=center),
+                               affine_warp(labels[0].float(), mat, order=0, center=center)),
+                      iters=5)
+    fwd = cfg.batch_size * forward_flops(plan, tuple(plan.patch_size))
+    recompute = cfg.batch_size * remat_flops(plan, tuple(plan.patch_size))
+    med = float(np.median(step_s[1:]))
+    emit({"phase": "train", "nvidia_smi": smi, "plan": "default_plan_1mm_iso",
+          "patch": list(plan.patch_size), "batch": cfg.batch_size, "cases": len(train_ds),
+          "epochs": cfg.epochs, "batches_per_epoch": cfg.batches_per_epoch,
+          "setup_s": setup_s, "fit_s": fit_s, "fit_peak_device_gb": fit_peak,
+          "fit_launches": fit_launches, "losses": losses, "best_metric": best,
+          "val_metrics": [h["metric"] for h in trainer.history],
+          "s_per_step_median": med, "s_per_step": step_s, "peak_device_gb": peak,
+          "step_forward_tflop": fwd / 1e12,
+          "step_tflop_with_backward_and_remat": (3 * fwd + recompute) / 1e12,
+          "step_tflop_per_s": (3 * fwd + recompute) / med / 1e12,
+          "step_bf16_peak_share": (3 * fwd + recompute) / med / BF16_FLOP_PER_S,
+          "step_device_ms_by_section": section_ms, "step_device_ms": step_dev_ms,
+          "step_device_ms_by_group": groups, "step_device_ms_by_section_and_group": sections,
+          "step_top_kernels_ms": [[n[:90], ms] for n, ms in
+                                  sorted(by_name.items(), key=lambda kv: -kv[1])[:12]],
+          "warp_pair_ms": warp_ms})
+
+
+def phase_train_card_vs_cpu(kernels, work):
+    """One Trainer step from the same weights and batch on the card and on
+    the CPU: a small plan in f32 with TF32 off, augmentation off."""
+    import torch
+
+    from deepwmh_tpu_torch.unet.train import TrainConfig, Trainer
+
+    plan = _small_plan()
+    cfg = TrainConfig(epochs=1, batches_per_epoch=1, augment=False)
+    rng = np.random.RandomState(3)
+    images = rng.randn(2, *plan.patch_size).astype(np.float32)
+    labels = (images + 0.5 * rng.randn(*images.shape) > 1.2).astype(np.int32)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        trainers, result = {}, {}
+        for dev in ("cpu", DEVICE):
+            tr = Trainer(plan, cfg, os.path.join(work, "tcc_" + dev), device=dev,
+                         dtype=torch.float32)
+            if dev == "cpu":
+                tr.init_state(0)
+                start = tr.state_trees()
+            else:
+                tr.load_state_trees(*start)
+            before = sum(k.launches for k in kernels.KERNELS.values())
+            loss = tr.train_step(*tr._to_device(images, labels), tr.lr_at(0))
+            result[dev] = float(loss)
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+                check(sum(k.launches for k in kernels.KERNELS.values()) == before,
+                      "the card's train step launched a kernel")
+            trainers[dev] = tr
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    # the same card step under torch's own TF32 settings: what TF32 alone
+    # moves (recorded, not checked)
+    tr = Trainer(plan, cfg, os.path.join(work, "tcc_tf32"), device=DEVICE, dtype=torch.float32)
+    tr.load_state_trees(*start)
+    loss_tf32 = float(tr.train_step(*tr._to_device(images, labels), tr.lr_at(0)))
+    row = {"loss_card": result[DEVICE], "loss_cpu": result["cpu"],
+           "loss_rel": abs(result[DEVICE] - result["cpu"]) / abs(result["cpu"]),
+           "torch_tf32_defaults": {"cudnn": saved[0], "matmul": saved[1]},
+           "loss_rel_torch_tf32_defaults": abs(loss_tf32 - result["cpu"]) / abs(result["cpu"])}
+    for what in ("params", "trace"):
+        cpu = [t.detach() for t in getattr(trainers["cpu"], what)]
+        card = [t.detach().cpu() for t in getattr(trainers[DEVICE], what)]
+        scale = max(float(t.abs().max()) for t in cpu)
+        row[what + "_max_abs"] = max(float((a - b).abs().max()) for a, b in zip(card, cpu))
+        row[what + "_scale"] = scale
+        check(row[what + "_max_abs"] <= 1e-5 * scale, "%s card vs CPU: %r" % (what, row))
+    check(row["loss_rel"] <= 1e-5, "train loss card vs CPU: %r" % row)
+    emit({"phase": "train_card_vs_cpu", "plan": "small f32, no TF32", "patch": plan.patch_size,
+          **row})
+
+
+
 def main() -> int:
     import torch
 
@@ -1000,9 +1425,12 @@ def main() -> int:
     k1_entry, act_entry = phase_k1(kernels, default_plan_1mm_iso())
     k2_entry = phase_k2(kernels)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=HERE) as work:
-        launches, flair = phase_main_path(kernels, work, smi)
+        launches, flair, pkg = phase_main_path(kernels, work, smi)
         phase_card_vs_cpu(kernels, work)
         stage1_launches = phase_stage1(kernels, work, smi)
+        phase_serve(kernels, work, pkg, smi)
+        phase_train(kernels, work, smi)
+        phase_train_card_vs_cpu(kernels, work)
     phase_postproc_exact(flair)
     phase_stage1_card_vs_cpu(kernels)
     # each kernel's launches on its own path: K1's two on predict, K2 on

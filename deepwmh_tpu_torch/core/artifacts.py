@@ -1,7 +1,7 @@
 """Artifact helpers: atomic JSON writes and the output-folder layout.
 
 The port's own copy of the parts of ``deepwmh_tpu.core.artifacts`` that the
-predict path uses.
+predict, serving and training paths use.
 """
 
 from __future__ import annotations
@@ -25,6 +25,11 @@ def atomic_write_json(obj, path: str) -> None:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise
+
+
+def load_json(path: str):
+    with open(path, "r") as f:
+        return json.load(f)
 
 
 def mkdir(path: str) -> str:

@@ -192,11 +192,15 @@ class _ChannelsLastKernel(CudaKernel):
     def _launch_fn(self, lib, bf16):
         raise NotImplementedError
 
-    def _check_view(self, x: torch.Tensor, *others) -> None:
-        # no backward: a call that autograd would have to see through raises
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (x,) + others):
+    def _refuse_autograd(self, *tensors) -> None:
+        """No backward: a call that autograd would have to see through
+        raises, on the CPU too, so that a model on K1 never trains on the
+        plain version unnoticed."""
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
             raise RuntimeError("%s: the CUDA kernel has no backward; call it under "
                                "torch.no_grad() or torch.inference_mode()" % self.name)
+
+    def _check_view(self, x: torch.Tensor) -> None:
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(
                 "%s: need a contiguous, 16-byte aligned [N, *spatial, C] view "
@@ -279,6 +283,7 @@ class InstanceNormStats(_ChannelsLastKernel):
         # the common case in few Python steps: at the deep stages the call
         # costs the host more than the card
         dev = x.device
+        self._refuse_autograd(x)
         if dev.type != "cuda":
             if dev.type == "cpu":
                 return instance_norm_stats_reference(x)
@@ -349,12 +354,13 @@ class InstanceNormAct(_ChannelsLastKernel):
 
     def __call__(self, x, mean, mul, bias, slope: float):
         dev = x.device
+        self._refuse_autograd(x, mean, mul, bias)
         if dev.type != "cuda":
             if dev.type == "cpu":
                 return instance_norm_act_reference(x, mean, mul, bias, slope)
             raise ValueError("instance_norm_act: unsupported device %s" % dev)
         N, M, C, rows, G, fn = self._plans.get((x.shape, x.dtype, dev)) or self._plan(x)
-        self._check_view(x, mean, mul, bias)
+        self._check_view(x)
         for what, t, shapes in (("mean", mean, ((N, C),)), ("mul", mul, ((N, C),)),
                                 ("bias", bias, ((N, C), (C,)))):
             if (t.dtype != torch.float32 or t.device != dev

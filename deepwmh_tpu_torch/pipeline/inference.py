@@ -2,11 +2,14 @@
 brain-FOV mask -> GIF preview, with the artifact layout and resume
 semantics of ``deepwmh_tpu.pipeline.inference``.
 
-A fresh case (no artifacts yet) runs the whole device pipeline in one call
-(``SlidingWindowPredictor.predict_case_full``). On one card every fresh
-case takes that path: the JAX package diverts only volumes its multi-device
-N4 would shard. A partially computed case runs stage by stage, probing each
-artifact with ``try_load_nifti``, so a rerun resumes where it stopped.
+Shared by the predict CLI and the serving loop (``pipeline/serve.py``). A
+fresh case (no artifacts yet) runs the whole device pipeline in one call
+(``SlidingWindowPredictor.predict_case_full``); a burst of fresh
+same-geometry cases runs it once over the batch (``predict_batch_cases``).
+On one card every fresh case takes that path: the JAX package diverts only
+volumes its multi-device N4 would shard. A partially computed case runs
+stage by stage, probing each artifact with ``try_load_nifti``, so a rerun
+resumes where it stopped.
 """
 
 from __future__ import annotations
@@ -57,38 +60,102 @@ def _render_preview(folders, case, raw_data, fov_data, image_path=None, seg_path
         print("warning: preview rendering failed for %s: %r" % (case, e), flush=True)
 
 
+def _case_paths(folders, case):
+    """(pre, raw seg, 3 mm seg, FOV seg) artifact paths of ``case``."""
+    return (join_path(folders["images"], "%s_0000.nii.gz" % case),
+            join_path(folders["raw"], "%s.nii.gz" % case),
+            join_path(folders["post_3mm"], "%s.nii.gz" % case),
+            join_path(folders["post_fov"], "%s.nii.gz" % case))
+
+
+def _save_full(outs, hdr, paths):
+    """Write the fused path's (pre, seg_raw, seg_3mm, seg_fov) artifacts;
+    returns the FOV mask as numpy."""
+    arrays = [_numpy(t) for t in outs[:4]]
+    for arr, path in zip(arrays, paths):
+        nifti.save_nifti(arr, hdr, path)
+    return arrays[3]
+
+
+@torch.inference_mode()
+def predict_batch_cases(predictor, cases, folders, skip_bfc: bool = False,
+                        make_previews: bool = True, preloads: dict | None = None):
+    """A burst of same-geometry cases through one batched sweep
+    (``predict_case_full_batch``), the serving burst path.
+
+    ``cases``: [(case, image_path)], all of one volume shape and spacing
+    (the caller groups them; checked here). ``preloads``: {case: (data,
+    hdr)} already decoded. A case with artifacts on disk (resume needs the
+    staged path) runs alone through predict_one_case, and so does every
+    case when the burst fails: the batch is an optimisation, never a
+    correctness boundary. Artifacts and previews equal the one-case path's.
+    Returns {case: seg_fov_path}."""
+    preloads = dict(preloads or {})
+    batch, solo = [], []
+    for case, image_path in cases:
+        if case not in preloads:
+            preloads[case] = nifti.load_nifti(image_path)
+        data, hdr = preloads[case]
+        if any(nifti.try_load_nifti(p) for p in _case_paths(folders, case)):
+            solo.append((case, image_path))
+        else:
+            batch.append((case, image_path, data, hdr))
+
+    out = {}
+    if len(batch) >= 2:
+        shapes = {d.shape for _, _, d, _ in batch}
+        zooms = {tuple(round(float(z), 4) for z in h.zooms[:3]) for _, _, _, h in batch}
+        if len(shapes) != 1 or len(zooms) != 1:
+            raise ValueError("burst cases must share geometry: shapes=%s zooms=%s"
+                             % (shapes, zooms))
+        spacing = [abs(z) for z in next(iter(zooms))]
+        try:
+            stack = np.stack([np.asarray(d, np.float32) for _, _, d, _ in batch])
+            outs = predictor.predict_case_full_batch(stack, spacing, apply_n4=not skip_bfc)
+            for i, (case, _image_path, data, hdr) in enumerate(batch):
+                paths = _case_paths(folders, case)
+                fov = _save_full([o[i] for o in outs], hdr, paths)
+                out[case] = paths[3]
+                if make_previews:
+                    _render_preview(folders, case, data, fov)
+        except Exception as e:
+            # any burst failure degrades to the per-case path (which
+            # quarantines a bad input on its own when serving)
+            print("burst of %d failed (%r); falling back to per-case" % (len(batch), e),
+                  flush=True)
+            solo.extend((case, p) for case, p, _, _ in batch)
+    else:
+        solo.extend((case, p) for case, p, _, _ in batch)
+
+    for case, image_path in solo:
+        out[case] = predict_one_case(predictor, case, image_path, folders, skip_bfc=skip_bfc,
+                                     make_previews=make_previews, preloaded=preloads.get(case))
+    return out
+
+
 @torch.inference_mode()
 def predict_one_case(predictor, case, image_path, folders, skip_bfc: bool = False,
-                     make_previews: bool = True):
+                     make_previews: bool = True, preloaded=None):
     """One case through the full inference path with a warm predictor;
     every artifact is loadability-probed so re-running resumes. Returns the
-    path of the FOV-masked segmentation."""
+    path of the FOV-masked segmentation.
+
+    ``preloaded``: (data, hdr) of image_path, already decoded (the serving
+    loop's prefetch); whichever path runs reuses it."""
     dev = predictor.device
-    pre_path = join_path(folders["images"], "%s_0000.nii.gz" % case)
-    raw_seg = join_path(folders["raw"], "%s.nii.gz" % case)
-    seg_3mm = join_path(folders["post_3mm"], "%s.nii.gz" % case)
-    seg_fov = join_path(folders["post_fov"], "%s.nii.gz" % case)
+    pre_path, raw_seg, seg_3mm, seg_fov = _case_paths(folders, case)
 
     raw_data = None
     fov_data = None
-    fused = not any(
-        nifti.try_load_nifti(p) for p in (pre_path, raw_seg, seg_3mm, seg_fov)
-    )
-    if fused:
-        raw_data, hdr = nifti.load_nifti(image_path)
+    if not any(nifti.try_load_nifti(p) for p in (pre_path, raw_seg, seg_3mm, seg_fov)):
+        raw_data, hdr = preloaded if preloaded is not None else nifti.load_nifti(image_path)
         spacing = [float(abs(z)) for z in hdr.zooms[:3]]
-        pre, seg, s3, fov, _fg = predictor.predict_case_full(
-            raw_data, spacing, apply_n4=not skip_bfc
-        )
-        fov_data = _numpy(fov)
-        nifti.save_nifti(_numpy(pre), hdr, pre_path)
-        nifti.save_nifti(_numpy(seg), hdr, raw_seg)
-        nifti.save_nifti(_numpy(s3), hdr, seg_3mm)
-        nifti.save_nifti(fov_data, hdr, seg_fov)
+        outs = predictor.predict_case_full(raw_data, spacing, apply_n4=not skip_bfc)
+        fov_data = _save_full(outs, hdr, (pre_path, raw_seg, seg_3mm, seg_fov))
     else:
         # stage-by-stage path: resume granularity = one artifact
         if not nifti.try_load_nifti(pre_path):
-            raw_data, hdr = nifti.load_nifti(image_path)
+            raw_data, hdr = preloaded if preloaded is not None else nifti.load_nifti(image_path)
             if skip_bfc:
                 nifti.save_nifti(raw_data, hdr, pre_path)
             else:

@@ -1,9 +1,11 @@
 """Checkpoint I/O and the weight carry-over between flax and PyTorch.
 
 A checkpoint is ``<name>.msgpack`` (flax ``to_bytes`` of ``{"params": tree}``,
-read and written here with the stdlib codec in ``msgpack_codec``) plus a
-``<name>.json`` metadata sidecar, exactly as ``deepwmh_tpu.unet.checkpoint``
-writes it, so a model trained by either package runs in the other.
+with ``"opt_state"`` beside it in a training checkpoint, read and written
+here with the stdlib codec in ``msgpack_codec``) plus a ``<name>.json``
+metadata sidecar, exactly as ``deepwmh_tpu.unet.checkpoint`` writes it, so a
+model trained by either package runs in the other and either trainer
+resumes the other's ``model_latest``.
 
 ``params_from_flax`` maps the flax parameter tree (numpy leaves) onto the
 port's ``UNet3D`` state_dict; ``params_to_flax`` is its inverse:
@@ -20,14 +22,17 @@ from __future__ import annotations
 
 import os
 import re
+import shutil
 
 import numpy as np
 import torch
 
-from deepwmh_tpu_torch.core.artifacts import atomic_write_json
+from deepwmh_tpu_torch.core.artifacts import atomic_write_json, load_json
 from deepwmh_tpu_torch.unet import msgpack_codec
 
 MODEL_BEST = "model_best"
+MODEL_LATEST = "model_latest"
+MODEL_EPOCH_FMT = "model_ep_%04d"
 
 _BLOCK = re.compile(r"^ConvNormAct_(\d+)$")
 _UP = re.compile(r"^ConvTranspose_(\d+)$")
@@ -73,10 +78,12 @@ def params_from_flax(tree: dict) -> dict:
 
 
 def params_to_flax(state_dict: dict) -> dict:
-    """Inverse of params_from_flax: port state_dict -> flax param tree."""
+    """Inverse of params_from_flax: port state_dict -> flax param tree of
+    numpy arrays that share no memory with the tensors (a CPU model that
+    trains on must not change a tree taken before)."""
     tree = {}
     for key, t in state_dict.items():
-        v = t.detach().to("cpu", torch.float32).numpy()
+        v = t.detach().to("cpu", torch.float32).numpy().copy()
         kind, idx, leaf = key.split(".", 2)
         if kind == "blocks":
             node = tree.setdefault("ConvNormAct_%s" % idx, {})
@@ -101,20 +108,55 @@ def params_to_flax(state_dict: dict) -> dict:
     return tree
 
 
-def load_flax_params(folder: str, name: str = MODEL_BEST) -> dict:
-    """The raw flax param tree (numpy leaves) of ``<folder>/<name>.msgpack``."""
+def checkpoint_exists(folder: str, name: str) -> bool:
+    return os.path.isfile(os.path.join(folder, name + ".msgpack"))
+
+
+def load_checkpoint(folder: str, name: str):
+    """(params tree, optimizer state tree or None, meta) of
+    ``<folder>/<name>``, trees with numpy leaves in flax's layout."""
     with open(os.path.join(folder, name + ".msgpack"), "rb") as f:
         payload = msgpack_codec.unpackb(f.read())
-    return payload["params"]
+    meta_path = os.path.join(folder, name + ".json")
+    meta = load_json(meta_path) if os.path.isfile(meta_path) else {}
+    return payload["params"], payload.get("opt_state"), meta
 
 
-def save_checkpoint(folder: str, name: str, params_tree: dict, meta: dict = None):
-    """Write ``{"params": params_tree}`` as flax msgpack plus the JSON
+def load_flax_params(folder: str, name: str = MODEL_BEST) -> dict:
+    """The raw flax param tree (numpy leaves) of ``<folder>/<name>.msgpack``."""
+    return load_checkpoint(folder, name)[0]
+
+
+def save_checkpoint(folder: str, name: str, params_tree: dict, opt_state=None,
+                    meta: dict = None):
+    """Write ``{"params": params_tree}`` (and ``"opt_state"`` when given, a
+    tree in flax's ``to_state_dict`` layout) as flax msgpack plus the JSON
     sidecar, the layout deepwmh_tpu's load_checkpoint reads."""
     os.makedirs(folder, exist_ok=True)
-    data = msgpack_codec.packb({"params": params_tree})
+    payload = {"params": params_tree}
+    if opt_state is not None:
+        payload["opt_state"] = opt_state
     tmp = os.path.join(folder, name + ".msgpack.tmp")
     with open(tmp, "wb") as f:
-        f.write(data)
+        f.write(msgpack_codec.packb(payload))
     os.replace(tmp, os.path.join(folder, name + ".msgpack"))
     atomic_write_json(meta or {}, os.path.join(folder, name + ".json"))
+
+
+def link_checkpoint(folder: str, src: str, dst: str):
+    """Make ``dst`` an alias of the written ``src`` checkpoint without
+    serialising the weights again: hard-link the msgpack (copy where the
+    filesystem has no links) and copy the meta json."""
+    src_m = os.path.join(folder, src + ".msgpack")
+    dst_m = os.path.join(folder, dst + ".msgpack")
+    tmp = dst_m + ".tmp"
+    if os.path.exists(tmp):
+        os.remove(tmp)
+    try:
+        os.link(src_m, tmp)
+    except OSError:
+        shutil.copyfile(src_m, tmp)
+    os.replace(tmp, dst_m)
+    src_j = os.path.join(folder, src + ".json")
+    if os.path.isfile(src_j):
+        shutil.copyfile(src_j, os.path.join(folder, dst + ".json"))

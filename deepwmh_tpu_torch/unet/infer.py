@@ -84,23 +84,28 @@ def _flip_axes(flip):
     return tuple(a for a, f in enumerate(flip) if f)
 
 
-def flip_forward(model, volume, flip):
-    """One TTA forward of [D,H,W]: flip, batch-1 forward, f32 softmax,
-    flip back. Returns [D, H, W, C]."""
-    axes = _flip_axes(flip)
-    v = volume.flip(axes) if axes else volume
-    logits = model(v[None, None])
-    p = torch.softmax(logits[0].float(), dim=0).permute(1, 2, 3, 0)
+def flip_forward(model, volumes, flip):
+    """One TTA forward of a batch [N,D,H,W]: flip, forward, f32 softmax,
+    flip back. Returns [N, D, H, W, C]."""
+    axes = tuple(a + 1 for a in _flip_axes(flip))
+    v = volumes.flip(axes) if axes else volumes
+    logits = model(v[:, None])
+    p = torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 4, 1)
     return p.flip(axes) if axes else p
 
 
 def fullvol_tta(model, volume, num_classes: int, flips):
-    """Whole-volume TTA: the mean softmax over ``flips`` [D, H, W, C]."""
-    acc = torch.zeros(tuple(volume.shape) + (num_classes,), dtype=torch.float32,
-                      device=volume.device)
+    """Whole-volume TTA: the mean softmax over ``flips``, [D, H, W, C] for
+    one volume [D,H,W], or [N, D, H, W, C] for a batch [N,D,H,W] (one
+    forward of the whole batch per flip; instance norm keeps the samples
+    apart)."""
+    vols = volume if volume.dim() == 4 else volume[None]
+    acc = torch.zeros(tuple(vols.shape) + (num_classes,), dtype=torch.float32,
+                      device=vols.device)
     for flip in flips:
-        acc = acc + flip_forward(model, volume, flip)
-    return acc / len(flips)
+        acc = acc + flip_forward(model, vols, flip)
+    acc = acc / len(flips)
+    return acc if volume.dim() == 4 else acc[0]
 
 
 def _patch_forward(model, patch, flips):
@@ -204,35 +209,43 @@ class SlidingWindowPredictor:
             data = torch.from_numpy(np.array(data, dtype=np.float32, order="C"))
         return data.to(self.device, torch.float32)
 
-    def _sweep(self, vol):
-        """Softmax [D,H,W,C] of preprocessed ``vol`` [D,H,W] (unpadded)."""
-        res_shape = tuple(vol.shape)
+    def _sweep(self, vols):
+        """Softmax [B,D,H,W,C] of preprocessed ``vols`` [B,D,H,W] (unpadded):
+        whole-volume TTA over the batch at once, or the patch sweep case by
+        case."""
+        res_shape = tuple(vols.shape[1:])
         C = int(self.plan.num_classes)
         if use_fullvol(self.mode, res_shape, self.plan):
-            padded = pad_to(vol, fullvol_shape(res_shape, self.plan))
+            padded = pad_to(vols, fullvol_shape(res_shape, self.plan))
             probs = fullvol_tta(self.model, padded, C, self._flips())
         else:
             target = padded_shape(res_shape, self.patch_size)
-            padded = pad_to(vol, target)
             pos, pos_w = patch_positions(target, self.patch_size, self.step_fraction)
-            acc, wt = accumulate_patches(self.model, padded, pos, pos_w, self.gauss,
-                                         self.patch_size, C, self._flips())
-            probs = acc / torch.clamp(wt, min=1e-8)[..., None]
-        return probs[: res_shape[0], : res_shape[1], : res_shape[2]]
+            out = []
+            for vol in vols:
+                acc, wt = accumulate_patches(self.model, pad_to(vol, target), pos, pos_w,
+                                             self.gauss, self.patch_size, C, self._flips())
+                out.append(acc / torch.clamp(wt, min=1e-8)[..., None])
+            probs = torch.stack(out)
+        return probs[:, : res_shape[0], : res_shape[1], : res_shape[2]]
 
     @torch.inference_mode()
     def predict_volume(self, volume):
         """volume: preprocessed [D,H,W] at plan spacing -> softmax [D,H,W,C]."""
-        return self._sweep(self._tensor(volume))
+        return self._sweep(self._tensor(volume)[None])[0]
 
-    def _case(self, vol, spacing):
-        """Preprocess, sweep, resample fg back, threshold. ``spacing`` is
-        already rounded to 4 decimals; the resampled shape is
-        round(shape * spacing / target_spacing) per axis (Python round)."""
-        pre = preprocess_case(vol, spacing, self.plan)
+    def _cases(self, vols, spacing):
+        """Preprocess each of ``vols`` (same shape), sweep them together,
+        resample each fg back and threshold. ``spacing`` is already rounded
+        to 4 decimals; the resampled shape is round(shape * spacing /
+        target_spacing) per axis (Python round). Returns [(seg, fg)]."""
+        pre = torch.stack([preprocess_case(v, spacing, self.plan) for v in vols])
         fg = self._sweep(pre)[..., 1]
-        fg_orig = resample_to_shape(fg, tuple(vol.shape), order=1)
-        return (fg_orig > 0.5).to(torch.uint8), fg_orig
+        out = []
+        for vol, f in zip(vols, fg):
+            fg_orig = resample_to_shape(f, tuple(vol.shape), order=1)
+            out.append(((fg_orig > 0.5).to(torch.uint8), fg_orig))
+        return out
 
     @torch.inference_mode()
     def predict_case(self, data, spacing, apply_n4: bool = False):
@@ -242,7 +255,20 @@ class SlidingWindowPredictor:
         vol = self._tensor(data)
         if apply_n4:
             vol = n4_bias_correction(vol)
-        return self._case(vol, spacing_r)
+        return self._cases([vol], spacing_r)[0]
+
+    def _full(self, raws, spacing, apply_n4):
+        """(pre, seg_raw, seg_3mm, seg_fov, fg) of each raw volume; the
+        U-Net sweep runs over all of them at once."""
+        spacing_r = tuple(round(float(s), 4) for s in spacing)
+        pres = [n4_bias_correction(raw) if apply_n4 else raw for raw in raws]
+        out = []
+        for pre, (seg, fg) in zip(pres, self._cases(pres, spacing_r)):
+            seg_3mm = remove_3mm_sparks(seg, spacing_r)
+            mask = brain_extract(pre, spacing_r)
+            seg_fov = ((seg_3mm * mask) > 0.5).float()
+            out.append((pre, seg, seg_3mm, seg_fov, fg))
+        return out
 
     @torch.inference_mode()
     def predict_case_full(self, data, spacing, apply_n4: bool = False):
@@ -250,11 +276,16 @@ class SlidingWindowPredictor:
         sweep, resample back, threshold, 3 mm spark removal, brain-FOV
         masking. Returns (pre, seg_raw, seg_3mm, seg_fov, fg) in the
         original grid: f32, uint8, f32, f32, f32."""
-        spacing_r = tuple(round(float(s), 4) for s in spacing)
-        raw = self._tensor(data)
-        pre = n4_bias_correction(raw) if apply_n4 else raw
-        seg, fg = self._case(pre, spacing_r)
-        seg_3mm = remove_3mm_sparks(seg, spacing_r)
-        mask = brain_extract(pre, spacing_r)
-        seg_fov = ((seg_3mm * mask) > 0.5).float()
-        return pre, seg, seg_3mm, seg_fov, fg
+        return self._full([self._tensor(data)], spacing, apply_n4)[0]
+
+    @torch.inference_mode()
+    def predict_case_full_batch(self, datas, spacing, apply_n4: bool = False):
+        """predict_case_full for a burst of same-geometry volumes [B,D,H,W]
+        (the serving burst path): N4 and preprocessing per case, the U-Net
+        sweep over the stacked batch, then resampling, threshold, spark
+        removal and the brain mask per case. Returns the same 5-tuple with
+        a leading batch axis."""
+        raws = self._tensor(datas)
+        if raws.dim() != 4:
+            raise ValueError("expect [B,D,H,W] volumes (got shape %s)" % (tuple(raws.shape),))
+        return tuple(torch.stack(o) for o in zip(*self._full(list(raws), spacing, apply_n4)))

@@ -9,6 +9,12 @@ activations kept in ``torch.channels_last_3d`` memory: then
 and the instance-norm statistics kernel (K1, ``ops/kernels.py``) and the
 normalize + leaky ReLU pass that consumes them read the activation in place.
 
+K1's kernels have no backward, so a model built with ``fused_norm=False``
+(the trainer's) runs flax GroupNorm's f32 chain out of place instead, which
+autograd differentiates; ``remat=True`` recomputes the blocks of the stages
+up to ``remat_max_stage`` in the backward pass (``torch.utils.checkpoint``),
+as the JAX trainer's ``nn.remat`` does.
+
 The flax model's depth-decomposed full-resolution conv is a TPU lowering of
 the same math; here every conv is one ``F.conv3d``. Parameter names map
 one-to-one onto the flax tree (``unet/checkpoint.py``).
@@ -21,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepwmh_tpu_torch.ops.kernels import instance_norm_act, instance_norm_stats
 from deepwmh_tpu_torch.unet.plan import Plan, features_per_stage
@@ -82,19 +89,24 @@ def _leaky_slope(dtype) -> float:
 
 
 class ConvNormAct(nn.Module):
-    """Conv -> instance norm (statistics from K1) -> leaky ReLU (K1's apply
-    pass)."""
+    """Conv -> instance norm -> leaky ReLU. With ``fused_norm`` (inference)
+    the statistics come from K1 and the rest from K1's apply pass, neither
+    of which autograd can see through; without it, the same math as an
+    out-of-place f32 chain that it can."""
 
     def __init__(self, cin, cout, kernel, stride=(1, 1, 1),
-                 dtype=torch.bfloat16, pad_style="same"):
+                 dtype=torch.bfloat16, pad_style="same", fused_norm: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.fused_norm = fused_norm
         self.conv = Conv3D(cin, cout, kernel, stride, dtype, pad_style)
         self.norm_weight = nn.Parameter(torch.ones(cout))
         self.norm_bias = nn.Parameter(torch.zeros(cout))
         self.slope = _leaky_slope(dtype)
 
     def forward(self, x):
+        if not self.fused_norm:
+            return self._plain(self.conv(x))
         # [N, D, H, W, C] view of the channels-last conv output, no copy
         y = self.conv(x).permute(0, 2, 3, 4, 1)
         mean, var = instance_norm_stats(y)
@@ -105,27 +117,55 @@ class ConvNormAct(nn.Module):
         out = instance_norm_act(y, mean, mul, self.norm_bias, self.slope)
         return out.permute(0, 4, 1, 2, 3)
 
+    def _plain(self, y):
+        """flax GroupNorm (one channel per group) + leaky ReLU on the conv
+        output [N, C, D, H, W]: f32 statistics, var clamped at 0, then
+        ((y - mean) * (scale * rsqrt(var + eps)) + bias) in f32, cast to
+        the compute dtype."""
+        yf = y.float()
+        mean = yf.mean((2, 3, 4), keepdim=True)
+        var = (yf * yf).mean((2, 3, 4), keepdim=True) - mean * mean
+        shape = (1, -1, 1, 1, 1)
+        mul = torch.rsqrt(var.clamp_min(0.0) + NORM_EPS) * self.norm_weight.view(shape)
+        out = ((yf - mean) * mul + self.norm_bias.view(shape)).to(self.dtype)
+        return F.leaky_relu(out, self.slope)
+
 
 class UNet3D(nn.Module):
     """Plan-configured 3D U-Net.
 
     forward(x: [N, C_in, D, H, W]) -> f32 logits [N, num_classes, D, H, W]
     at full resolution, or with ``deep_supervision=True`` the list of every
-    level's logits, highest resolution first."""
+    level's logits, highest resolution first.
 
-    def __init__(self, plan: Plan, dtype=torch.bfloat16):
+    ``fused_norm`` (default, inference): every block on K1's kernels.
+    Training builds the model with it off. ``remat``: the blocks of stages
+    0..``remat_max_stage`` keep no activations for the backward pass and
+    are recomputed there (it applies only while autograd records). Neither
+    flag changes the parameters."""
+
+    def __init__(self, plan: Plan, dtype=torch.bfloat16, fused_norm: bool = True,
+                 remat: bool = False, remat_max_stage: int = 1):
         super().__init__()
         self.plan = plan
         self.dtype = dtype
+        self.remat = remat
+        self.remat_max_stage = remat_max_stage
         feats = features_per_stage(plan)
         P = plan.num_pools
         pad = getattr(plan, "pad_style", "same")
         blocks = []
+        self._stages = []  # the resolution stage of each block, for remat
         cin = int(plan.in_channels)
+
+        def block(cin, cout, i, stride=(1, 1, 1)):
+            self._stages.append(i)
+            return ConvNormAct(cin, cout, plan.conv_kernels[i], stride, dtype, pad, fused_norm)
+
         for i in range(P + 1):
             stride = plan.pool_kernels[i - 1] if i > 0 else (1, 1, 1)
-            blocks.append(ConvNormAct(cin, feats[i], plan.conv_kernels[i], stride, dtype, pad))
-            blocks.append(ConvNormAct(feats[i], feats[i], plan.conv_kernels[i], (1, 1, 1), dtype, pad))
+            blocks.append(block(cin, feats[i], i, stride))
+            blocks.append(block(feats[i], feats[i], i))
             cin = feats[i]
         ups = []
         heads = [None] * max(P, 1)
@@ -134,8 +174,8 @@ class UNet3D(nn.Module):
         for i in range(P - 1, -1, -1):
             pk = tuple(int(k) for k in plan.pool_kernels[i])
             ups.append(nn.ConvTranspose3d(cin, feats[i], pk, pk, bias=False))
-            blocks.append(ConvNormAct(2 * feats[i], feats[i], plan.conv_kernels[i], (1, 1, 1), dtype, pad))
-            blocks.append(ConvNormAct(feats[i], feats[i], plan.conv_kernels[i], (1, 1, 1), dtype, pad))
+            blocks.append(block(2 * feats[i], feats[i], i))
+            blocks.append(block(feats[i], feats[i], i))
             heads[i] = nn.Conv3d(feats[i], plan.num_classes, 1)
             cin = feats[i]
         self.blocks = nn.ModuleList(blocks)
@@ -147,11 +187,21 @@ class UNet3D(nn.Module):
         y = F.conv3d(x, _weight(h.weight, self.dtype))
         return (y + h.bias.to(self.dtype).view(1, -1, 1, 1, 1)).float()
 
+    def _blocks(self):
+        """The blocks in call order, those to recompute wrapped in a
+        checkpoint."""
+        remat = self.remat and torch.is_grad_enabled()
+        for blk, stage in zip(self.blocks, self._stages):
+            if remat and stage <= self.remat_max_stage:
+                yield lambda x, _b=blk: checkpoint(_b, x, use_reentrant=False)
+            else:
+                yield blk
+
     def forward(self, x, deep_supervision: bool = False):
         plan = self.plan
         P = plan.num_pools
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last_3d)
-        blocks = iter(self.blocks)
+        blocks = self._blocks()
         skips = []
         for i in range(P + 1):
             x = next(blocks)(x)
@@ -171,9 +221,24 @@ class UNet3D(nn.Module):
         return outputs if deep_supervision else outputs[0]
 
 
+# the standard deviation of a standard normal truncated to [-2, 2]
+TRUNC_STD = 0.87962566103423978
+
+
+def truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard normal draws truncated to [-2, 2] (f32, CPU), by the
+    inverse CDF of uniform draws between the two tails, as
+    ``jax.random.truncated_normal`` draws them."""
+    lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2.0, 2.0))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64) * (hi - lo) + lo
+    return (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp_(-2.0, 2.0).float()
+
+
 def init_weights(model: UNet3D, generator: torch.Generator) -> UNet3D:
-    """Random weights from ``generator``: LeCun-normal kernels (fan-in
-    scaled, as flax initialises), zero biases, unit norm scales."""
+    """Random weights from ``generator`` with flax's distributions: kernels
+    LeCun-normal as ``nn.initializers.lecun_normal`` draws them (a normal
+    truncated at 2 sigma, rescaled to std sqrt(1 / fan_in)), zero biases,
+    unit norm scales."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("norm_weight"):
@@ -184,5 +249,6 @@ def init_weights(model: UNet3D, generator: torch.Generator) -> UNet3D:
                 # ConvTranspose3d stores [in, out, k...]; the others [out, in, k...]
                 cin = p.shape[0] if name.startswith("ups.") else p.shape[1]
                 fan_in = int(cin) * math.prod(p.shape[2:])
-                p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
+                std = math.sqrt(1.0 / fan_in) / TRUNC_STD
+                p.copy_(truncated_normal(p.shape, generator) * std)
     return model

@@ -1,4 +1,4 @@
-"""Model packages: validate, resolve, load and write.
+"""Model packages: validate, resolve, load, write and release.
 
 A released model is a folder holding ``plan.json``, ``model_best.msgpack``
 (+ ``.json`` metadata) and a ``framework.json`` manifest — the layout
@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
+import tarfile
 
 import torch
 
@@ -23,6 +25,7 @@ from deepwmh_tpu_torch.unet.plan import Plan
 MANIFEST = "framework.json"
 PLAN_FILE = "plan.json"
 PACKAGE_FORMAT = "deepwmh_tpu"
+RELEASE_TARBALL = "model_release.tar.gz"
 
 
 def validate_model_dir(folder: str) -> None:
@@ -90,6 +93,38 @@ def load_released_model(folder: str, checkpoint_name: str = ckpt.MODEL_BEST,
     return model, plan
 
 
+def _write_manifest(out: str) -> None:
+    atomic_write_json({"package": PACKAGE_FORMAT, "version": __version__, "format": 1},
+                      os.path.join(out, MANIFEST))
+
+
+def release_model(train_dir: str, plan: Plan, out_folder: str, make_tarball=True) -> str:
+    """Collect a training folder's model_best and ``plan`` into a model
+    package at ``out_folder`` and, by default, compress it into
+    ``model_release.tar.gz`` there. Returns the tarball path (the folder
+    with make_tarball=False)."""
+    out = mkdir(out_folder)
+    if not ckpt.checkpoint_exists(train_dir, ckpt.MODEL_BEST):
+        raise RuntimeError("no %s checkpoint in %s — train the pipeline first"
+                           % (ckpt.MODEL_BEST, train_dir))
+    for suffix in (".msgpack", ".json"):
+        src = os.path.join(train_dir, ckpt.MODEL_BEST + suffix)
+        if os.path.isfile(src):
+            shutil.copyfile(src, os.path.join(out, ckpt.MODEL_BEST + suffix))
+    plan.save(os.path.join(out, PLAN_FILE))
+    _write_manifest(out)
+    if not make_tarball:
+        return out
+    tarball = os.path.join(out, RELEASE_TARBALL)
+    if os.path.isfile(tarball):
+        os.remove(tarball)
+    with tarfile.open(tarball, "w:gz") as tf:
+        for name in os.listdir(out):
+            if name != RELEASE_TARBALL:
+                tf.add(os.path.join(out, name), arcname=name)
+    return tarball
+
+
 def write_model_package(folder: str, model: UNet3D, plan: Plan,
                         meta: dict | None = None) -> str:
     """Write ``model``'s weights and ``plan`` as a model package that both
@@ -98,8 +133,5 @@ def write_model_package(folder: str, model: UNet3D, plan: Plan,
     ckpt.save_checkpoint(out, ckpt.MODEL_BEST,
                          ckpt.params_to_flax(model.state_dict()), meta=meta)
     plan.save(os.path.join(out, PLAN_FILE))
-    atomic_write_json(
-        {"package": PACKAGE_FORMAT, "version": __version__, "format": 1},
-        os.path.join(out, MANIFEST),
-    )
+    _write_manifest(out)
     return out

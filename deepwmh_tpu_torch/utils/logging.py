@@ -1,10 +1,11 @@
-"""Run logging and stage timestamps (the port's copy of
-``deepwmh_tpu.utils.logging``'s ``SimpleTxtLog`` and ``TimeStamps``)."""
+"""Run logging, a wall-clock timer and stage timestamps (the port's copy
+of ``deepwmh_tpu.utils.logging``)."""
 
 from __future__ import annotations
 
 import datetime
 import os
+import time
 
 
 class SimpleTxtLog:
@@ -23,6 +24,21 @@ class SimpleTxtLog:
             stamp = datetime.datetime.now().strftime("[%Y-%m-%d %H:%M:%S] ")
         with open(self.path, "a") as f:
             f.write(stamp + msg + "\n")
+
+
+class Timer:
+    """Wall-clock timer."""
+
+    def __init__(self):
+        self.start = time.time()
+
+    def elapsed(self) -> float:
+        return time.time() - self.start
+
+    def restart(self) -> float:
+        e = self.elapsed()
+        self.start = time.time()
+        return e
 
 
 class TimeStamps:

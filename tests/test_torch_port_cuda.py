@@ -1,7 +1,9 @@
 """deepwmh_tpu_torch on a CUDA card: each hand-written kernel against its
 plain PyTorch version (the apply pass and K2 bit for bit, K1 within 1e-4
-and with the same bits on every call), the wrappers' checks, and the U-Net
-and the 3 mm median on the card against the CPU. Every test here needs a card and skips without one; this
+and with the same bits on every call), the wrappers' checks, the U-Net
+and the 3 mm median on the card against the CPU, a model on K1 refusing
+autograd, the trainer's model launching no K1, and the serving burst
+against one-case runs. Every test here needs a card and skips without one; this
 file imports no JAX, so that it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
@@ -198,3 +200,62 @@ def test_median_3mm_on_card_equals_cpu(cuda, voxel_size):
     # (3, 3, 3) at 2 mm goes to K2; 1x1x5 mm is a (3, 3, 1) sort on both
     assert kernels.median3.launches - before == (1 if voxel_size[2] == 2.0 else 0)
     assert torch.equal(got.cpu(), filters.median_3mm(vol, voxel_size))
+
+
+def _tiny_plan():
+    return Plan(target_spacing=[2.0] * 3, patch_size=[16] * 3, batch_size=2,
+                pool_kernels=[[2, 2, 2], [2, 2, 2]], conv_kernels=[[3, 3, 3]] * 3,
+                base_features=16, max_features=32)
+
+
+def test_fused_model_refuses_autograd(cuda):
+    """A model on K1 (fused_norm, the inference default) never trains on
+    the card: its first block raises under autograd."""
+    model = init_weights(UNet3D(_tiny_plan()), torch.Generator().manual_seed(0))
+    model = model.to(cuda, memory_format=torch.channels_last_3d)
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(torch.randn(1, 1, 16, 16, 16, device=cuda))
+
+
+def test_training_model_launches_no_k1(cuda, tmp_path):
+    """A Trainer step (augmentation on) on the card: a finite loss, and not
+    one launch of K1's kernels."""
+    from deepwmh_tpu_torch.unet.train import TrainConfig, Trainer
+
+    tr = Trainer(_tiny_plan(), TrainConfig(epochs=1, batches_per_epoch=2), str(tmp_path),
+                 device=cuda)
+    tr.init_state(0)
+    g = torch.Generator().manual_seed(1)
+    images = torch.randn(2, 16, 16, 16, generator=g).to(cuda)
+    labels = (images > 1.0).long()
+    before = {name: k.launches for name, k in kernels.KERNELS.items()}
+    loss = tr.train_step(images, labels, tr.lr_at(0), torch.Generator(device=cuda).manual_seed(2))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert {name: k.launches for name, k in kernels.KERNELS.items()} == before
+
+
+def test_predict_case_full_batch_equals_one_case_runs(cuda):
+    """The serving burst at B = 2 on the card (bf16, N4, 8 flips): masks
+    > 99.9% equal to two one-case runs, fg within atol 5e-3, one launch of
+    each K1 kernel a block and flip for the batch."""
+    from deepwmh_tpu_torch.unet.infer import ALL_FLIPS, SlidingWindowPredictor
+
+    plan = _tiny_plan()
+    model = init_weights(UNet3D(plan), torch.Generator().manual_seed(3))
+    pred = SlidingWindowPredictor(model, plan, device=cuda)
+    g = torch.Generator().manual_seed(4)
+    grid = torch.stack(torch.meshgrid(*[torch.linspace(-1, 1, s) for s in (32, 36, 28)],
+                                      indexing="ij")).pow(2).sum(0).sqrt()
+    vols = torch.stack([(grid < 0.8) * (300 + 60 * torch.rand(grid.shape, generator=g))
+                        for _ in range(2)]).numpy()
+    before = kernels.instance_norm_stats.launches
+    batch = [o.cpu() for o in pred.predict_case_full_batch(vols, (2.0, 2.0, 2.0), apply_n4=True)]
+    torch.cuda.synchronize()
+    assert kernels.instance_norm_stats.launches - before == len(ALL_FLIPS) * (4 * 2 + 2)
+    for i, vol in enumerate(vols):
+        solo = [o.cpu() for o in pred.predict_case_full(vol, (2.0, 2.0, 2.0), apply_n4=True)]
+        for k in (1, 2, 3):
+            assert (batch[k][i] == solo[k]).float().mean() > 0.999, (i, k)
+        assert float((batch[4][i] - solo[4]).abs().max()) < 5e-3
+        torch.testing.assert_close(batch[0][i], solo[0], rtol=1e-3, atol=1e-3)
