@@ -1,0 +1,129 @@
+"""All-pairs group registration on the GPU:
+``python -m deepwmh_tpu_torch.cli.group_register``.
+
+Same flags and artifacts as ``deepwmh_tpu.cli.group_register`` (the
+reference's antsGroupRegistration, with its manual multi-machine
+``--distributed a/b`` protocol: machines sharing the output folder each run
+one shard, and finished pairs are skipped, so re-running is safe), plus
+``-g i | --device cpu``. The training-prep preset is
+
+  -s src.csv -t tgt.csv -o out --keep-deformation \\
+      --allow-quick-registration --allow-large-deformations
+
+It runs on CUDA (``-g i`` picks ``cuda:i``); the CPU only with
+``--device cpu``. ``--batch-pairs N`` is accepted and pairs run one by one;
+``--mesh`` (multi-device sharding) is not ported and exits with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from deepwmh_tpu_torch.core.manifests import load_csv_simple
+
+
+def add_device_args(parser) -> None:
+    parser.add_argument("-g", "--gpu", type=int, default=None,
+                        help="CUDA device index to run on (default: the current CUDA "
+                        "device).")
+    parser.add_argument("--device", type=str, default=None,
+                        help="Device to run on: cuda, cuda:i or cpu. The CPU is used only "
+                        "when asked for. Mutually exclusive with -g.")
+
+
+def device_from_args(parser, args):
+    if args.gpu is not None and args.device is not None:
+        parser.error("-g/--gpu and --device are mutually exclusive")
+    return "cuda:%d" % args.gpu if args.gpu is not None else args.device
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Register every source image onto every target image "
+        "(rigid + affine + diffeomorphic SVF, PyTorch/CUDA).",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    parser.add_argument("-s", "--source", type=str, required=True,
+                        help="Source CSV with columns (case, data).")
+    parser.add_argument("-t", "--target", type=str, required=True,
+                        help="Target CSV with columns (case, data).")
+    parser.add_argument("-o", "--output-folder", type=str, required=True)
+    parser.add_argument("-j", "--jobs", type=int, default=1,
+                        help="Kept for CLI compatibility (pairs run one by one on the "
+                        "device).")
+    parser.add_argument("--keep-deformation", action="store_true",
+                        help="Keep dense warp fields (needed for label propagation).")
+    parser.add_argument("--allow-quick-registration", action="store_true",
+                        help="Fewer iterations / coarser finest level.")
+    parser.add_argument("--allow-large-deformations", action="store_true",
+                        help="More iterations for large anatomical differences.")
+    parser.add_argument("--affine-only", action="store_true",
+                        help="Skip the deformable stage.")
+    parser.add_argument("--learned", action="store_true",
+                        help="Amortized mode (the reference's VoxelMorph pathway): build "
+                        "an affine template, train one registration network on the "
+                        "cohort, register every pair with a single forward pass.")
+    parser.add_argument("--mesh", action="store_true",
+                        help="Multi-device sharding: not ported to the GPU package "
+                        "(exits with an error).")
+    parser.add_argument("--batch-pairs", type=int, default=1,
+                        help="Accepted for CLI compatibility; pairs run one by one.")
+    parser.add_argument("-d", "--distributed", type=str, default=None,
+                        help="'a/b': run shard a (1-based) of b machines.")
+    parser.add_argument("--svf-warm-start", action="store_true",
+                        help="Seed each pair's SVF from the composition of the "
+                        "anchor-source row and source->anchor pairs, refined on a "
+                        "shortened schedule (needs >= 2 sources, --keep-deformation, no "
+                        "--distributed/--batch-pairs).")
+    add_device_args(parser)
+    args = parser.parse_args(argv)
+    device = device_from_args(parser, args)
+    if args.mesh:
+        raise SystemExit("--mesh: multi-device pair sharding is not ported to the GPU "
+                         "package yet (ROADMAP A13); run without --mesh.")
+
+    src = load_csv_simple(args.source, key_names=["case", "data"])
+    tgt = load_csv_simple(args.target, key_names=["case", "data"])
+    sources = list(zip(src["case"], src["data"]))
+    targets = list(zip(tgt["case"], tgt["data"]))
+
+    if args.learned:
+        from deepwmh_tpu_torch.registration.learned_group import LearnedGroupRegistration
+
+        if args.distributed:
+            raise SystemExit("--learned trains one shared network; shard the pair list "
+                             "only in the classic mode.")
+        ignored = [name for name, on in [
+            ("--affine-only", args.affine_only),
+            ("--allow-quick-registration", args.allow_quick_registration),
+            ("--allow-large-deformations", args.allow_large_deformations),
+            ("--batch-pairs", args.batch_pairs != 1),
+            ("--svf-warm-start", args.svf_warm_start),
+        ] if on]
+        if ignored:
+            raise SystemExit("--learned does not support: %s (learned mode always keeps "
+                             "deformations; pyramid/batching flags are classic-mode only)."
+                             % " ".join(ignored))
+        LearnedGroupRegistration(sources, targets, args.output_folder, device=device).launch()
+        print("learned group registration finished.")
+        return
+
+    from deepwmh_tpu_torch.registration.group import GroupRegistration
+
+    reg = GroupRegistration(
+        sources, targets, args.output_folder,
+        keep_deformation=args.keep_deformation,
+        quick=args.allow_quick_registration,
+        large_deformation=args.allow_large_deformations,
+        distributed=args.distributed,
+        deformable=not args.affine_only,
+        warm_start=args.svf_warm_start,
+        device=device,
+    )
+    print("%d registration pair(s) in this shard." % len(reg.tasks))
+    reg.launch(batch_pairs=args.batch_pairs)
+    print("group registration finished.")
+
+
+if __name__ == "__main__":
+    main()

@@ -310,6 +310,27 @@ def save_nifti(data, header, path, dtype="float32", level=4):
     _write_payload(payload, path, level=level)
 
 
+def save_nifti_scaled_int16(data, header, path, level=2):
+    """Save as int16 with a scl_slope chosen from the data range (standard
+    NIfTI intensity scaling: ``load_nifti`` recovers the values to about
+    |max|/32000). Registration writes its displacement fields this way:
+    half the bytes of float32, and several times faster to deflate.
+    Non-finite data raises: one NaN would poison the slope of the whole
+    artifact."""
+    data = np.asarray(data, dtype=np.float32)
+    amax = float(np.max(np.abs(data))) if data.size else 0.0
+    if not np.isfinite(amax):
+        raise ValueError("save_nifti_scaled_int16(%s): data contains non-finite values" % path)
+    slope = max(amax / 32000.0, 1e-9)
+    q = np.clip(np.round(data / slope), -32767, 32767).astype(np.int16)
+    hdr = header.copy() if isinstance(header, NiftiHeader) else NiftiHeader()
+    hdr.set_shape(q.shape)
+    hdr.scl_slope, hdr.scl_inter = float(slope), 0.0
+    hdr.datatype = _DTYPE_CODES[np.dtype(np.int16)]
+    payload = _serialize_header(hdr, hdr.datatype) + b"\x00" * 4 + q.tobytes(order="F")
+    _write_payload(payload, path, level=level)
+
+
 def copy_nifti(src, dst, level=4) -> None:
     """Copy a NIfTI file, compressing or decompressing the bytes when the
     two names differ in their ``.gz`` suffix, so the copy reads back."""

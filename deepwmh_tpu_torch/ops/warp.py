@@ -1,14 +1,19 @@
-"""Resampling through affine transforms: the part of ``deepwmh_tpu.ops.warp``
-that training augmentation needs (its displacement fields and compositions
-serve registration and are not ported yet).
+"""Resampling through affine transforms and dense displacement fields (the
+port of ``deepwmh_tpu.ops.warp``): training augmentation's affine warps, and
+registration's field sampling and transform compositions.
 
-Conventions as there: volumes are [D,H,W], coordinates are voxel-space, and
-a 3x4 affine maps OUTPUT voxel coordinates to INPUT voxel coordinates (the
-pull-back convention). Sampling follows ``jax.scipy.ndimage.
+Conventions as there: volumes are [D,H,W], coordinates are voxel-space, a
+3x4 affine maps OUTPUT voxel coordinates to INPUT voxel coordinates (the
+pull-back convention), and a displacement field is [3,D,H,W] voxel offsets
+added to the identity grid. ``sample_volume`` follows ``jax.scipy.ndimage.
 map_coordinates`` with ``mode="constant"``: order 0 rounds half away from
 zero (torch's ``round`` and ``grid_sample``'s nearest mode round half to
 even), and order 1 sums the 8 corner terms in map_coordinates' order, each
-corner outside the volume contributing 0 on its own.
+corner outside the volume contributing 0 on its own. ``sample_channels``
+has its own arithmetic, that of the JAX function of the same name: floor
+indices and fractions, the corners in (z, y, x) order, each term
+``weight * where(valid, value, 0)`` with the weight a product of three
+factors. Everything outside a volume samples as 0.
 """
 
 from __future__ import annotations
@@ -66,6 +71,43 @@ def sample_volume(vol, coords, order: int = 1) -> torch.Tensor:
     return out
 
 
+def sample_channels(vols, coords) -> torch.Tensor:
+    """Trilinearly sample C volumes [C,D,H,W] at shared coords [3, ...] ->
+    f32 [C, ...]: each of the 8 corners is one gather of all channels on
+    the flattened [C, D*H*W] layout (the sampler of scaling-and-squaring,
+    whose 3-channel fields are resampled at every squaring). The per-axis
+    indices, validity and weight factors are formed once and combined per
+    corner in the JAX function's order."""
+    vols = vols.float()
+    c = vols.shape[0]
+    sizes = tuple(int(s) for s in vols.shape[1:])
+    out_shape = tuple(coords.shape[1:])
+    cf = coords.reshape(3, -1)
+    lower = torch.floor(cf)
+    f = cf - lower
+    i0 = lower.long()
+    flat = vols.reshape(c, -1)
+    strides = (sizes[1] * sizes[2], sizes[2], 1)
+    # per axis and offset: (clamped index * stride, inside the volume, weight)
+    axes = []
+    for a in range(3):
+        per = []
+        for off in (0, 1):
+            idx = i0[a] + off if off else i0[a]
+            valid = (idx >= 0) & (idx < sizes[a])
+            per.append((idx.clamp(0, sizes[a] - 1) * strides[a], valid,
+                        f[a] if off else 1.0 - f[a]))
+        axes.append(per)
+    out = None
+    for (l0, v0, w0), (l1, v1, w1) in itertools.product(axes[0], axes[1]):
+        l01, v01, w01 = l0 + l1, v0 & v1, w0 * w1
+        for l2, v2, w2 in axes[2]:
+            vals = torch.where((v01 & v2)[None, :], flat[:, l01 + l2], 0.0)
+            term = (w01 * w2)[None, :] * vals
+            out = term if out is None else out + term
+    return out.reshape((c,) + out_shape)
+
+
 def affine_warp(vol, matrix, order: int = 1, center=None) -> torch.Tensor:
     """Resample ``vol`` through a 3x4 (or 4x4) affine: for output voxel o
     the input coordinate is A @ o + t, or A @ (o - c) + c + t about
@@ -83,6 +125,38 @@ def affine_warp(vol, matrix, order: int = 1, center=None) -> torch.Tensor:
     else:
         coords = A @ grid + t[:, None]
     return sample_volume(vol, coords.reshape((3,) + shape), order=order)
+
+
+def displacement_warp(vol, disp, order: int = 1) -> torch.Tensor:
+    """Resample through a dense displacement field ``disp`` [3,D,H,W] (voxel
+    offsets): out(o) = vol(o + disp(o))."""
+    grid = identity_grid(disp.shape[1:], disp.device)
+    return sample_volume(vol, grid + disp, order=order)
+
+
+def _affine_rows(matrix, device):
+    m = torch.as_tensor(matrix, dtype=torch.float32).to(device)
+    if m.shape == (4, 4):
+        m = m[:3]
+    return m[:, :3], m[:, 3]
+
+
+def compose_affine_then_disp(matrix, disp) -> torch.Tensor:
+    """Pull-back composition of [affine, warp] as antsApplyTransforms
+    applies them: the output voxel is displaced by the warp, then mapped
+    through the affine. Returns coords [3,D,H,W] for ``sample_volume``."""
+    grid = identity_grid(disp.shape[1:], disp.device)
+    warped = grid + disp
+    A, t = _affine_rows(matrix, disp.device)
+    return (A @ warped.reshape(3, -1) + t[:, None]).reshape(warped.shape)
+
+
+def compose_disp(disp_outer, disp_inner) -> torch.Tensor:
+    """Compose two displacement fields: d_inner(o) + d_outer(o +
+    d_inner(o)), so that warping once by the result equals warping by inner
+    then outer."""
+    grid = identity_grid(disp_inner.shape[1:], disp_inner.device)
+    return disp_inner + sample_channels(disp_outer, grid + disp_inner)
 
 
 def rotation_matrix(angles) -> torch.Tensor:

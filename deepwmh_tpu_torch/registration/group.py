@@ -1,0 +1,418 @@
+"""All-pairs group registration with idempotent artifacts (the port of
+``deepwmh_tpu.registration.group``).
+
+The reference's ANTsGroupRegistration wrapper: register every source
+(healthy reference) onto every target (training subject), S x T pairs,
+skipping pairs whose outputs already load cleanly and supporting the manual
+multi-machine ``--distributed a/b`` round-robin sharding. Each pair is the
+affine + SVF stack on one device.
+
+Artifact layout per pair, the same as the JAX package's (either package
+reads and resumes the other's):
+  <out>/<s>_to_<t>.nii.gz          warped source image on the target grid
+  <out>/<s>_to_<t>/warp.nii.gz     displacement field (D,H,W,3, voxels),
+                                   int16 with a scl_slope
+  <out>/<s>_to_<t>/affine.json     3x4 physical affine + spacings, written
+                                   last: its presence marks a complete pair
+
+The numbers pass through the same casts as there: fixed and moving are
+uploaded as f16, the displacement and the warped image come back as f16.
+Pairs run one by one (``batch_pairs`` is accepted for the CLI's sake); the
+multi-device mesh is not ported and raises.
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from deepwmh_tpu_torch.core import nifti
+from deepwmh_tpu_torch.core.artifacts import atomic_write_json, join_path, load_json, mkdir
+from deepwmh_tpu_torch.device import resolve_device
+from deepwmh_tpu_torch.registration.affine import (
+    AffineConfig,
+    _affine_core,
+    feasible_affine_cfg,
+    resample_moving,
+    spacing_tensor,
+)
+from deepwmh_tpu_torch.registration.svf import (
+    SVFConfig,
+    _feasible_cfg,
+    _svf_core,
+    apply_affine_svf,
+)
+
+MESH_NOT_PORTED = ("multi-device pair sharding (mesh) is not ported to the GPU package "
+                   "yet (ROADMAP A13); run without it")
+
+
+def pair_name(source_case: str, target_case: str) -> str:
+    return "%s_to_%s" % (source_case, target_case)
+
+
+def _pair_core(fixed, moving, fsp, msp, acfg, scfg, deformable):
+    """One pair on the device: affine pyramid -> resample -> SVF pyramid ->
+    final fused [affine, warp] resample. Returns (matrix, affine loss,
+    disp f16 or None, SVF loss or None, warped f16) as device tensors."""
+    fixed = fixed.float()
+    moving = moving.float()
+    mat, aff_loss = _affine_core(fixed, moving, fsp, msp, acfg)
+    moving_on_fixed = resample_moving(moving, mat, fixed.shape, fsp, msp, order=1)
+    if deformable:
+        disp, svf_loss = _svf_core(fixed, moving_on_fixed, scfg)
+        warped = apply_affine_svf(moving, mat, disp, fixed.shape, fsp, msp, order=1)
+        disp16 = disp.half()
+    else:
+        disp16, svf_loss = None, None
+        warped = moving_on_fixed
+    return mat, aff_loss, disp16, svf_loss, warped.half()
+
+
+def _to_host(outs):
+    """A pair's device outputs as numpy / floats (the one wait per pair)."""
+    mat, aff_loss, disp16, svf_loss, warped16 = outs
+    return (mat.cpu().numpy(), float(aff_loss),
+            None if disp16 is None else disp16.cpu().numpy(),
+            None if svf_loss is None else float(svf_loss), warped16.cpu().numpy())
+
+
+class GroupRegistration:
+    def __init__(self, sources, targets, output_folder, keep_deformation: bool = True,
+                 quick: bool = False, large_deformation: bool = False,
+                 distributed: str = None, deformable: bool = True,
+                 warm_start: bool = False, device=None):
+        """sources/targets: [(case_name, image_path)].
+
+        quick: the reference's --allow-quick-registration (the finest
+        pyramid level dropped); large_deformation: --allow-large-deformations
+        (more iterations, 2^4 integration steps, the exact-gradient polish);
+        both together are the training-prep preset. distributed: 'a/b' runs
+        shard a (1-based) of b. warm_start: register the first source onto
+        every target and the other sources onto the first at full budget,
+        then seed every other pair from their composition on a shortened
+        schedule (registration/warm.py); needs >= 2 sources, deformable
+        pairs with kept warps, and no sharding. device: CUDA unless the CPU
+        is asked for.
+        """
+        self.sources = list(sources)
+        self.targets = list(targets)
+        self.device = resolve_device(device)
+        self.output_folder = mkdir(output_folder)
+        self.keep_deformation = keep_deformation
+        self.deformable = deformable
+        self._quick = quick
+        self._large = large_deformation
+        self.warm_start = bool(warm_start) and len(self.sources) >= 2
+        if warm_start and distributed:
+            raise ValueError("warm_start shards have cross-pair dependencies (anchor row "
+                             "first); use --distributed without --svf-warm-start")
+        if warm_start and not (deformable and keep_deformation):
+            raise ValueError("warm_start needs deformable pairs with kept warps (the "
+                             "composed seed reads the anchor row's warp fields)")
+
+        if quick and large_deformation:
+            # the reference's training-prep configuration: large-deformation
+            # capacity (iterations, 2^4 integration steps, the hybrid
+            # exact-polish exp gradient) on the quick pyramid
+            self.affine_cfg = AffineConfig(shrinks=(8, 4), iters=(200, 120))
+            self.svf_cfg = SVFConfig(shrinks=(8, 4), iters=(200, 160), n_squaring=4,
+                                     exact_polish_iters=30)
+        elif quick:
+            self.affine_cfg = AffineConfig(shrinks=(8, 4), iters=(100, 50))
+            self.svf_cfg = SVFConfig(shrinks=(8, 4), iters=(100, 50))
+        elif large_deformation:
+            self.affine_cfg = AffineConfig(shrinks=(8, 4, 2), iters=(200, 120, 60))
+            self.svf_cfg = SVFConfig(shrinks=(8, 4, 2), iters=(200, 160, 80), n_squaring=4,
+                                     exact_polish_iters=30)
+        else:
+            self.affine_cfg = AffineConfig()
+            self.svf_cfg = SVFConfig()
+
+        tasks = [(s, t) for s in self.sources for t in self.targets]
+        if distributed:
+            a, b = (int(v) for v in distributed.split("/"))
+            if not 1 <= a <= b:
+                raise ValueError("invalid --distributed %s" % distributed)
+            tasks = [task for i, task in enumerate(tasks) if i % b == (a - 1)]
+        self.tasks = tasks
+
+    # ------------------------------------------------------------------ #
+
+    def _pair_paths(self, s_case, t_case):
+        name = pair_name(s_case, t_case)
+        return {
+            "image": join_path(self.output_folder, name + ".nii.gz"),
+            "dir": join_path(self.output_folder, name),
+            "affine": join_path(self.output_folder, name, "affine.json"),
+            "warp": join_path(self.output_folder, name, "warp.nii.gz"),
+        }
+
+    def _pair_done(self, paths) -> bool:
+        if not nifti.try_load_nifti(paths["image"]):
+            return False
+        if not os.path.isfile(paths["affine"]):
+            return False
+        if self.deformable and self.keep_deformation and not nifti.try_load_nifti(paths["warp"]):
+            return False
+        return True
+
+    def pair_complete(self, s_case: str, t_case: str) -> bool:
+        """Full completeness probe of one pair (image + affine + warp when
+        kept): the contract distributed barriers use."""
+        return self._pair_done(self._pair_paths(s_case, t_case))
+
+    def _pair_cfgs(self, fixed_shape):
+        return (feasible_affine_cfg(self.affine_cfg, fixed_shape),
+                _feasible_cfg(self.svf_cfg, fixed_shape))
+
+    def _pair_meta(self, matrix, f_sp, m_sp, f_shape, aff_loss, svf_loss):
+        return {
+            "matrix": np.asarray(matrix).tolist(),
+            "fixed_spacing": [float(v) for v in f_sp],
+            "moving_spacing": [float(v) for v in m_sp],
+            "fixed_shape": [int(v) for v in f_shape],
+            "affine_loss": float(aff_loss),
+            "svf_loss": None if svf_loss is None else float(svf_loss),
+            "deformable": bool(self.deformable),
+            "warp_kept": bool(self.deformable and self.keep_deformation),
+        }
+
+    def _write_pair(self, paths, f_hdr, f_sp, m_sp, f_shape,
+                    matrix, aff_loss, disp16, svf_loss, warped16):
+        mkdir(paths["dir"])
+        nifti.save_nifti(np.asarray(warped16, np.float32), f_hdr, paths["image"], level=2)
+        if disp16 is not None and self.keep_deformation:
+            nifti.save_nifti_scaled_int16(np.moveaxis(np.asarray(disp16, np.float32), 0, -1),
+                                          f_hdr, paths["warp"])
+        # affine.json last: the cheap atomic marker whose presence implies
+        # the image (and the warp, when kept) are complete
+        atomic_write_json(self._pair_meta(matrix, f_sp, m_sp, f_shape, aff_loss, svf_loss),
+                          paths["affine"])
+
+    def _run_pair(self, fixed16, moving16, f_sp, m_sp, acfg, scfg):
+        """One pair from f16 host volumes to host outputs."""
+        dev = self.device
+        outs = _pair_core(torch.from_numpy(np.ascontiguousarray(fixed16)).to(dev),
+                          torch.from_numpy(np.ascontiguousarray(moving16)).to(dev),
+                          spacing_tensor(f_sp, dev), spacing_tensor(m_sp, dev),
+                          acfg, scfg, self.deformable)
+        return _to_host(outs)
+
+    def register_pair(self, s_case, s_path, t_case, t_path, verbose=True):
+        paths = self._pair_paths(s_case, t_case)
+        if self._pair_done(paths):
+            if verbose:
+                print("pair %s: already done, skip" % pair_name(s_case, t_case))
+            return paths
+        if verbose:
+            print("registering %s" % pair_name(s_case, t_case), flush=True)
+        fixed, f_hdr = nifti.load_nifti(t_path)
+        moving, _ = nifti.load_nifti(s_path)
+        f_sp = nifti.get_nifti_pixdim(t_path)
+        m_sp = nifti.get_nifti_pixdim(s_path)
+        acfg, scfg = self._pair_cfgs(fixed.shape)
+        # f16 upload: FLAIR intensities carry <= 12 significant bits
+        out = self._run_pair(fixed.astype(np.float16), moving.astype(np.float16),
+                             f_sp, m_sp, acfg, scfg)
+        self._write_pair(paths, f_hdr, f_sp, m_sp, fixed.shape, *out)
+        return paths
+
+    def launch(self, verbose: bool = True, batch_pairs: int = 1, mesh=None):
+        """Register every remaining pair as a three-stage pipeline: threaded
+        NIfTI prefetch -> the pair on the device -> threaded artifact
+        writes. ``batch_pairs`` is accepted and pairs run one by one;
+        ``mesh`` is not ported."""
+        if mesh is not None:
+            raise NotImplementedError(MESH_NOT_PORTED)
+        if self.warm_start:
+            if batch_pairs > 1:
+                raise ValueError("warm_start is a serial schedule (anchor row -> warm "
+                                 "rows); drop --svf-warm-start to batch pairs")
+            return self._launch_warm(verbose=verbose)
+        return self._launch_pairs(verbose=verbose)
+
+    def _launch_pairs(self, verbose: bool = True):
+        todo, n_skip = [], 0
+        for s, t in self.tasks:
+            paths = self._pair_paths(s[0], t[0])
+            if self._pair_done(paths):
+                n_skip += 1
+                continue
+            f_hdr = nifti.get_nifti_header(t[1])
+            m_hdr = nifti.get_nifti_header(s[1])
+            # the spacings the JAX launcher groups pairs by, and writes:
+            # abs() of the header zooms rounded to 4 decimals
+            f_sp = tuple(round(abs(z), 4) for z in f_hdr.zooms[:3])
+            m_sp = tuple(round(abs(z), 4) for z in m_hdr.zooms[:3])
+            todo.append((s, t, paths, f_hdr, f_sp, m_sp))
+        if verbose and n_skip:
+            print("%d pair(s) already done, skipped" % n_skip, flush=True)
+
+        def load(item):
+            s, t = item[0], item[1]
+            # gzip decompression releases the GIL; f16 for the upload
+            return (nifti.load_nifti_simple(t[1]).astype(np.float16),
+                    nifti.load_nifti_simple(s[1]).astype(np.float16))
+
+        writes = []
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            pending = pool.submit(load, todo[0]) if todo else None
+            for i, (s, t, paths, f_hdr, f_sp, m_sp) in enumerate(todo):
+                fixed, moving = pending.result()
+                if i + 1 < len(todo):
+                    pending = pool.submit(load, todo[i + 1])
+                if verbose:
+                    print("[%d/%d] registering %s" % (i + 1, len(todo), pair_name(s[0], t[0])),
+                          flush=True)
+                acfg, scfg = self._pair_cfgs(fixed.shape)
+                outs = self._run_pair(fixed, moving, f_sp, m_sp, acfg, scfg)
+                writes.append(pool.submit(self._write_pair, paths, f_hdr, f_sp, m_sp,
+                                          fixed.shape, *outs))
+                writes = _reap(writes)
+            # launch() returns only when every artifact is written
+            for f in writes:
+                f.result()
+
+    def _launch_warm(self, verbose: bool = True):
+        """The anchor source's row and the source -> anchor auxiliary pairs
+        at the full budget (under ``_warm_aux/``, not part of the S x T
+        contract), then every remaining pair seeded from their composition
+        on the shortened schedule. Same artifacts and probes as the cold
+        path, so resume works across the two."""
+        from deepwmh_tpu_torch.registration.warm import warm_pair_core, warm_schedule
+
+        anchor, others = self.sources[0], self.sources[1:]
+        aux_dir = join_path(self.output_folder, "_warm_aux")
+        GroupRegistration(others, [anchor], aux_dir, keep_deformation=True,
+                          quick=self._quick, large_deformation=self._large,
+                          device=self.device).launch(verbose=verbose)
+        GroupRegistration([anchor], self.targets, self.output_folder, keep_deformation=True,
+                          quick=self._quick, large_deformation=self._large,
+                          device=self.device).launch(verbose=verbose)
+
+        remaining = [(s, t) for s in others for t in self.targets
+                     if not self._pair_done(self._pair_paths(s[0], t[0]))]
+        if not remaining:
+            if verbose:
+                print("all warm pairs already done", flush=True)
+            return
+
+        dev = self.device
+
+        def field(pdir):
+            """(matrix, warp [3,D,H,W] f16) of a finished pair, on the device."""
+            meta = load_json(join_path(pdir, "affine.json"))
+            warp = np.moveaxis(nifti.load_nifti_simple(join_path(pdir, "warp.nii.gz")), -1, 0)
+            return (torch.as_tensor(np.asarray(meta["matrix"], np.float32)).to(dev),
+                    torch.from_numpy(np.ascontiguousarray(warp.astype(np.float16))).to(dev))
+
+        sp_s0 = spacing_tensor(nifti.get_nifti_pixdim(anchor[1]), dev)
+        aux = {s_name: field(join_path(aux_dir, pair_name(s_name, anchor[0])))
+               for s_name, _ in others}
+        moving_by_src = {s_name: torch.from_numpy(
+            nifti.load_nifti_simple(path).astype(np.float16)).to(dev) for s_name, path in others}
+
+        def load_target(t):
+            return (nifti.load_nifti_simple(t[1]).astype(np.float16),
+                    field(join_path(self.output_folder, pair_name(anchor[0], t[0]))))
+
+        by_target = {}
+        for s, t in remaining:
+            by_target.setdefault(t, []).append(s)
+        targets_todo = list(by_target)
+
+        done, total, writes = 0, len(remaining), []
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            pending = pool.submit(load_target, targets_todo[0])
+            for ti, t in enumerate(targets_todo):
+                t_name, t_path = t
+                fixed, (mat0t, d0t) = pending.result()
+                if ti + 1 < len(targets_todo):
+                    pending = pool.submit(load_target, targets_todo[ti + 1])
+                f_hdr = nifti.get_nifti_header(t_path)
+                f_sp = nifti.get_nifti_pixdim(t_path)
+                acfg, scfg = self._pair_cfgs(fixed.shape)
+                warm_scfg = warm_schedule(scfg)
+                fx = torch.from_numpy(fixed).to(dev)
+                fsp = spacing_tensor(f_sp, dev)
+                for s_name, s_path in by_target[t]:
+                    done += 1
+                    if verbose:
+                        print("[warm %d/%d] registering %s"
+                              % (done, total, pair_name(s_name, t_name)), flush=True)
+                    mati0, di0 = aux[s_name]
+                    m_sp = nifti.get_nifti_pixdim(s_path)
+                    outs = _to_host(warm_pair_core(
+                        fx, moving_by_src[s_name], fsp, spacing_tensor(m_sp, dev), d0t, di0,
+                        mat0t, mati0, sp_s0, acfg, warm_scfg))
+                    writes.append(pool.submit(self._write_pair, self._pair_paths(s_name, t_name),
+                                              f_hdr, f_sp, m_sp, fixed.shape, *outs))
+                    writes = _reap(writes)
+            for f in writes:
+                f.result()
+
+
+def _reap(futures):
+    """Raise the error of any finished write (fail fast); keep the rest."""
+    for f in futures:
+        if f.done():
+            f.result()
+    return [f for f in futures if not f.done()]
+
+
+def apply_pair_transforms(pair_dir, in_files, out_files, interp="NearestNeighbor",
+                          device=None):
+    """Warp files from the source subject's grid onto the target grid through
+    a saved pair transform (the reference's two-step antsApplyTransforms
+    label propagation) in one gather. Reads either package's pair
+    directories; ``device``: CUDA unless the CPU is asked for."""
+    dev = resolve_device(device)
+    meta = load_json(join_path(pair_dir, "affine.json"))
+    matrix = np.asarray(meta["matrix"], np.float32)
+    fixed_shape = tuple(meta["fixed_shape"])
+    f_sp, m_sp = meta["fixed_spacing"], meta["moving_spacing"]
+    order = 0 if interp == "NearestNeighbor" else 1
+
+    deformable = meta.get("deformable")
+    if deformable is None:  # metas from older runs lack the explicit flag
+        deformable = meta.get("warp_kept", meta.get("svf_loss") is not None)
+    disp = None
+    try:  # one decode (a probe-then-load would gunzip the field twice)
+        disp = np.moveaxis(nifti.load_nifti_simple(join_path(pair_dir, "warp.nii.gz")), -1, 0)
+    except Exception:
+        pass
+    if disp is None and deformable:
+        # the pair image is SVF-warped: affine-only labels would be
+        # misaligned with it and cached by the resume probes downstream
+        raise RuntimeError(
+            "pair %s: the pair was registered deformably but warp.nii.gz is missing or "
+            "unreadable (never kept - re-run with keep_deformation - or deleted/corrupt: "
+            "delete %s and re-run registration for this pair)." % (pair_dir, pair_dir))
+    if disp is None:  # affine-only registration: zero displacement is exact
+        disp = np.zeros((3,) + fixed_shape, np.float32)
+
+    # donor header: the pair's registered image carries the target geometry
+    pair_image = pair_dir.rstrip("/\\") + ".nii.gz"
+    if os.path.isfile(pair_image):
+        hdr = nifti.get_nifti_header(pair_image)
+    else:
+        hdr = nifti.NiftiHeader()
+        hdr.set_shape(fixed_shape)
+        hdr.set_zooms(tuple(f_sp))
+        hdr.srow = np.concatenate([np.diag([f_sp[0], f_sp[1], f_sp[2]]), np.zeros((3, 1))],
+                                  axis=1)
+
+    disp_t = None
+    for in_file, out_file in zip(in_files, out_files):
+        if nifti.try_load_nifti(out_file):
+            continue
+        if disp_t is None:
+            disp_t = torch.from_numpy(np.ascontiguousarray(disp, np.float32)).to(dev)
+        data = torch.from_numpy(nifti.load_nifti_simple(in_file)).to(dev)
+        out = apply_affine_svf(data, matrix, disp_t, fixed_shape, f_sp, m_sp, order=order)
+        os.makedirs(os.path.dirname(os.path.abspath(out_file)), exist_ok=True)
+        nifti.save_nifti(out.cpu().numpy(), hdr, out_file)

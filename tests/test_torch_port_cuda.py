@@ -2,8 +2,10 @@
 plain PyTorch version (the apply pass and K2 bit for bit, K1 within 1e-4
 and with the same bits on every call), the wrappers' checks, the U-Net
 and the 3 mm median on the card against the CPU, a model on K1 refusing
-autograd, the trainer's model launching no K1, and the serving burst
-against one-case runs. Every test here needs a card and skips without one; this
+autograd, the trainer's model launching no K1, the serving burst
+against one-case runs, K1 at the learned registration network's shapes
+(C = 8, 16, 32) and registration's field gather on the card against the
+CPU. Every test here needs a card and skips without one; this
 file imports no JAX, so that it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
@@ -259,3 +261,49 @@ def test_predict_case_full_batch_equals_one_case_runs(cuda):
             assert (batch[k][i] == solo[k]).float().mean() > 0.999, (i, k)
         assert float((batch[4][i] - solo[4]).abs().max()) < 5e-3
         torch.testing.assert_close(batch[0][i], solo[0], rtol=1e-3, atol=1e-3)
+
+
+def _learned_stats_shapes():
+    """[1, *spatial, C] of every K1 call of the learned registration
+    network on the flagship cohort's 96x112x96 template grid."""
+    from chip_smoke import learned_stats_shapes
+
+    return [(1,) + spatial + (c,) for spatial, c, _ in learned_stats_shapes((96, 112, 96))]
+
+
+def test_k1_at_learned_registration_shapes(cuda):
+    """C = 8 (one 16-byte group a row in bf16), 16, 32 and the bottleneck:
+    statistics within 1e-4 of the plain version with the same bits on a
+    second call, the apply pass bit-equal to the plain chain."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    shapes = _learned_stats_shapes()
+    assert [s[-1] for s in shapes] == [8, 16, 32, 32]
+    slope = float(torch.tensor(0.01, dtype=torch.bfloat16))
+    for shape in shapes:
+        x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(torch.bfloat16)
+        first, second = kernels.instance_norm_stats(x), kernels.instance_norm_stats(x)
+        ref_mean, ref_var = kernels.instance_norm_stats_reference(x)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1]), shape
+        torch.testing.assert_close(first[0], ref_mean, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(first[1], ref_var, atol=1e-4, rtol=1e-4)
+        mul = torch.rsqrt(first[1].clamp_min(0.0) + 1e-5)
+        bias = torch.linspace(-0.5, 0.5, shape[-1], device=cuda)
+        out = kernels.instance_norm_act(x, first[0], mul, bias, slope)
+        want = kernels.instance_norm_act_reference(x, first[0], mul, bias, slope)
+        assert torch.equal(out, want), shape
+
+
+def test_sample_channels_on_card_equals_cpu(cuda):
+    """The squaring's 3-channel gather at the preset's 48x56x48 level, with
+    coordinates reaching past every face: the card's values equal the
+    CPU's (elementwise ops in the same order, no reduction)."""
+    from deepwmh_tpu_torch.ops.warp import identity_grid, sample_channels
+
+    g = torch.Generator().manual_seed(2)
+    shape = (48, 56, 48)
+    field = torch.randn((3,) + shape, generator=g) * 4
+    coords = identity_grid(shape) + field
+    want = sample_channels(field, coords)
+    got = sample_channels(field.to(cuda), coords.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)

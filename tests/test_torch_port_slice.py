@@ -165,7 +165,7 @@ def test_no_quiet_fallback_to_the_cpu(runs, tmp_path, monkeypatch):
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "flax") or top == "deepwmh_tpu"
+    return top in ("jax", "jaxlib", "flax", "optax") or top == "deepwmh_tpu"
 
 
 def test_port_sources_import_no_jax():
