@@ -51,16 +51,17 @@ Phases, each printing JSON lines to stdout:
    of the learned registration network on the 2 mm template grid of the
    flagship cohort (96x112x96; C = 8, 16, 32, 32), checked as in k1;
 13. group_register: ``python -m deepwmh_tpu_torch.cli.group_register`` with
-   the training-prep preset in a subprocess on a 2x2 cohort at
-   192x224x192 (two synthetic atlases; two targets, the first warped by a
-   seeded diffeomorphism and a small affine, labels alike): the artifacts
-   and affine.json read back, LNCC up, propagated brain Dice above the
-   floor and above the unregistered one, a re-run skipping all four pairs;
+   the training-prep preset in a subprocess on a 2x1 cohort at
+   192x224x192 (two synthetic atlases; one target, the first atlas warped
+   by a seeded diffeomorphism and a small affine, labels alike): the
+   artifacts and affine.json read back, LNCC up, propagated brain Dice
+   above the floor and above the unregistered one, a re-run skipping both
+   pairs;
    then one pair stage by stage (affine, SVF, final resample, writes, peak
    memory), launches, device time and busy share per Adam step at every
    pyramid level, and the plain-torch hot loops' times;
 14. warm: ``--svf-warm-start`` on a copy of that output without the second
-   source's pairs (the auxiliary pair and two warm pairs), the same checks;
+   source's pair (the auxiliary pair and one warm pair), the same checks;
 15. learned: ``LearnedGroupRegistration`` at full width on the same cohort,
    training cut to 30 of 300 steps: K1's launches from its forward passes
    (this run only), the same checks, seconds per template volume, per step
@@ -68,10 +69,39 @@ Phases, each printing JSON lines to stdout:
 16. priors: the priors CLI (its synthetic atlas, --quick) on one subject;
 17. reg_card_vs_cpu: one pair at 48x56x48, short schedule, on the card (no
    TF32) against the CPU within the one-pair bars, and the field gather;
-18. kernels: one line listing each kernel with its launches on its path
+18. train_e2e: ``DeepWMH_train`` through ``run_train`` on a phantom cohort
+   (``eval/phantom.write_cohort``) at 64x80x64 2 mm, 3 references x 3
+   patients (9 svf pairs, auto asserted to resolve to svf), the production
+   plan (patch 64x80x64, batch 2, widths 32 -> 320) cut to 4 / 6 epochs of
+   10 steps: K1's and K2's launches from that run, the nine markers, the
+   registration artifacts and run_registration.sh, stage-1 recall and Dice
+   against the planted lesions, the release installed and a held-out
+   patient predicted through the two CLIs, a second run through the train
+   CLI (a subprocess) that trains nothing within 60 s; the installed
+   release in this process gives the CLI's held-out masks, a foreground
+   probability that is not constant, and stage 3-5's training fit;
+   seconds per stage (run_train's ``stage_stats``), peak memory, the
+   held-out Dice; then N4's repeatability (fault C3): the differing bits
+   of two N4 runs on a cohort FLAIR and of a rerun on the flagship FLAIR,
+   and the differing voxels of the stage-1 and predict masks they give,
+   beside the same readings with N4's histogram summed in f32 (the
+   control);
+19. k1_train: K1's two kernels at every [1, M, C] of the train path's
+   sweeps (the stage-2 plan at 64x80x64), checked and timed as in k1;
+20. kernels: one line listing each kernel with its launches on its path
    (K1's statistics and apply kernels on the predict path and, as
-   ``learned_launches``, on the learned registration; K2 on the stage-1
-   path), after a line of the readings behind registration/policy.py.
+   ``learned_launches`` / ``train_launches``, on the learned registration
+   and on the train path; K2 on the stage-1 path and the train path),
+   after a line of the policy's readings at the flagship shape.
+
+``python3 chip_smoke.py --e2e-dice`` builds the kernels and then, instead
+of the phases, runs ``eval/e2e.run_e2e_accuracy`` at the e2e accuracy
+configuration (64x80x64 2 mm, 5 references, 3 patients, 2 held-out
+patients, ``default_e2e_budget()``) for seeds 0, 1 and 2, each with the
+svf and with the learned registration forced, ``--repeats`` (1) times:
+one line per run (held-out and stage-1 Dice, wall, seconds per
+registration pair), then the means, the run-to-run ranges, the svf -
+learned gap a seed and the policy readings at that shape.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``. A failed phase
 raises, and the script exits non-zero before printing it; so it does with no
@@ -80,6 +110,7 @@ CUDA device, or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -347,11 +378,12 @@ def in_turns(measure, fns: dict) -> dict:
     return {name: float(np.median(v)) for name, v in seen.items()}
 
 
-def phase_k1(kernels, plan):
+def phase_k1(kernels, plan, vol_shape=FLAGSHIP_SHAPE, phase="k1", what="flagship"):
     """K1's statistics kernel against its plain version and torch.var_mean,
     and K1's apply kernel against the plain chain it replaces, at every
-    [N, M, C] of the flagship forward. Returns the kernels-line entries of
-    both: times summed over the 22 calls of one forward."""
+    [N, M, C] of ``plan``'s whole-volume forward of ``vol_shape`` (the
+    flagship's by default). Returns the kernels-line entries of both: times
+    summed over the calls of one forward."""
     import torch
 
     stats, act = kernels.instance_norm_stats, kernels.instance_norm_act
@@ -362,7 +394,7 @@ def phase_k1(kernels, plan):
     max_err = act_err = 0.0
     calls_per_forward = 0
     slope = float(torch.tensor(0.01, dtype=torch.bfloat16))  # the bf16 model's slope
-    for spatial, c, calls in stats_shapes(plan, FLAGSHIP_SHAPE):
+    for spatial, c, calls in stats_shapes(plan, vol_shape):
         x = (torch.randn((1,) + spatial + (c,), generator=gen, device=DEVICE) * 2
              + 0.5).to(torch.bfloat16)
         n, m = 1, int(np.prod(spatial))
@@ -430,7 +462,7 @@ def phase_k1(kernels, plan):
             / HBM_BYTES_PER_S * 1e3,
         }
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-        emit({"phase": "k1", "shape_nmc": [n, m, c], "calls_per_forward": calls,
+        emit({"phase": phase, "shape_nmc": [n, m, c], "calls_per_forward": calls,
               "max_abs_err": err, "act_max_abs_err": row_act_err, **row})
         for key in total:
             total[key] = None if total[key] is None or row[key] is None else (
@@ -440,7 +472,7 @@ def phase_k1(kernels, plan):
         calls_per_forward += calls
         del x, x3, mean, var, ref_mean, ref_var, out, want
     check(calls_per_forward == 4 * plan.num_pools + 2, "K1 shape table is off")
-    per = "one flagship forward (%d calls)" % calls_per_forward
+    per = "one %s forward (%d calls)" % (what, calls_per_forward)
     stats_entry = {
         "name": "instance_norm_stats", "route": "cuda",
         "source": "deepwmh_tpu_torch/csrc/instance_norm_stats.cu",
@@ -575,8 +607,8 @@ def phase_main_path(kernels, work, smi):
     _timed("write_one_artifact", lambda: nifti.save_nifti(
         pre_np, hdr, os.path.join(work, "io_probe.nii.gz")), io)
     agree = float((fov.cpu().numpy() == first["fov"]).mean())
-    # N4's histogram sums with float atomics, so a rerun may differ in the
-    # last bits; the masks must still agree almost everywhere
+    # a rerun of the whole case (phase train_e2e holds N4 and the masks to
+    # the same bits)
     check(agree > 0.999, "staged rerun agrees with the main path on only %.5f" % agree)
     emit({"phase": "main_path", "nvidia_smi": smi, "plan": "default_plan_1mm_iso",
           "shape": list(FLAGSHIP_SHAPE), "cases": len(cases), "tta_flips": len(ALL_FLIPS),
@@ -1797,8 +1829,8 @@ def reg_hot_loops(fixed, moving, scfg, acfg, dev):
 
 
 def phase_group_register(kernels, work, smi):
-    """The group CLI with the training-prep preset on a 2x2 flagship cohort
-    in a subprocess, the artifacts checked, a re-run that skips all four
+    """The group CLI with the training-prep preset on a 2x1 flagship cohort
+    in a subprocess, the artifacts checked, a re-run that skips both
     pairs; then one pair in this process stage by stage, the optimisers'
     launches per step and busy share, and the hot loops' times."""
     import torch
@@ -1815,7 +1847,7 @@ def phase_group_register(kernels, work, smi):
     root = os.path.join(work, "reg")
     t0 = time.perf_counter()
     src_csv, tgt_csv, cases = registration_cohort(os.path.join(root, "cohort"), FLAGSHIP_SHAPE,
-                                                  FLAGSHIP_SPACING, n_targets=2, seed=0,
+                                                  FLAGSHIP_SPACING, n_targets=1, seed=0,
                                                   device=DEVICE)
     setup_s = time.perf_counter() - t0
     out = os.path.join(root, "out")
@@ -1823,9 +1855,10 @@ def phase_group_register(kernels, work, smi):
         k.launches = 0
     stdout, cli_s = _run_cli("deepwmh_tpu_torch.cli.group_register",
                              ["-s", src_csv, "-t", tgt_csv, "-o", out] + REG_PRESET)
-    check("4 registration pair(s)" in stdout and stdout.count("registering") == 4,
+    pairs = ["src0_to_tgt0", "src1_to_tgt0"]
+    check("%d registration pair(s)" % len(pairs) in stdout
+          and stdout.count("registering") == len(pairs),
           "group CLI output:\n%s" % stdout[-2000:])
-    pairs = ["src%d_to_tgt%d" % (s, t) for s in range(2) for t in range(2)]
     checks = _pair_checks(out, cases, pairs, DEVICE)
     rerun_s = _rerun_registers_nothing(src_csv, tgt_csv, out, warm_start=False)
 
@@ -1871,8 +1904,8 @@ def phase_group_register(kernels, work, smi):
 
 def phase_warm(work, smi, src_csv, tgt_csv, cases, out):
     """--svf-warm-start on a copy of the group output without the second
-    source's pairs: the auxiliary pair and two warm pairs registered, the
-    same checks on the warm pairs, and a re-run that registers nothing."""
+    source's pair: the auxiliary pair and one warm pair registered, the
+    same checks on the warm pair, and a re-run that registers nothing."""
     warm_out = os.path.join(work, "reg", "out_warm")
     shutil.copytree(out, warm_out)
     for name in os.listdir(warm_out):
@@ -1882,30 +1915,28 @@ def phase_warm(work, smi, src_csv, tgt_csv, cases, out):
     stdout, wall = _run_cli("deepwmh_tpu_torch.cli.group_register",
                             ["-s", src_csv, "-t", tgt_csv, "-o", warm_out, "--svf-warm-start"]
                             + REG_PRESET)
-    check(stdout.count("[warm ") == 2 and stdout.count("registering") == 3,
+    check(stdout.count("[warm ") == 1 and stdout.count("registering") == 2,
           "warm CLI output:\n%s" % stdout[-2000:])
     check(os.path.isfile(os.path.join(warm_out, "_warm_aux", "src1_to_src0", "affine.json")),
           "no auxiliary pair under _warm_aux")
     # the first source's pairs are group_register's, copied: check the warm ones
-    checks = _pair_checks(warm_out, cases, ["src1_to_tgt0", "src1_to_tgt1"], DEVICE)
+    checks = _pair_checks(warm_out, cases, ["src1_to_tgt0"], DEVICE)
     rerun_s = _rerun_registers_nothing(src_csv, tgt_csv, warm_out, warm_start=True)
     emit({"phase": "warm", "nvidia_smi": smi, "shape": list(FLAGSHIP_SHAPE),
-          "cli_wall_s": wall, "pairs_registered": 3, "rerun_s": rerun_s,
+          "cli_wall_s": wall, "pairs_registered": 2, "rerun_s": rerun_s,
           "pairs_checked": checks})
 
 
-def phase_learned(kernels, work, smi, cases):
-    """LearnedGroupRegistration at full width on the 2x2 cohort with the
-    training cut to LEARNED_STEPS steps: K1's launches from its forward
-    passes (this run only), the artifacts checked, seconds per template
-    volume, per training step and per pair."""
+@contextlib.contextmanager
+def learned_timing():
+    """Times the learned registration's parts while it runs: the affine
+    template, the network's training, each pair's forward (``register``)
+    and the first training step, each between two synchronisations.
+    Yields the dict they are summed into."""
     import torch
 
     from deepwmh_tpu_torch.registration import learned, learned_group
 
-    sources = [(c, cases[c][0]) for c in ("src0", "src1")]
-    targets = [(c, cases[c][0]) for c in ("tgt0", "tgt1")]
-    out = os.path.join(work, "reg", "out_learned")
     timing = {"template_s": 0.0, "train_s": 0.0, "register_s": [], "first_step_s": None}
     build, train, register = (learned_group.build_affine_template,
                               learned.LearnedRegistration.train,
@@ -1936,6 +1967,27 @@ def phase_learned(kernels, work, smi, cases):
     learned.LearnedRegistration.register = synced("register_s", register)
     learned.LearnedRegistration.train_step = first_step
     try:
+        yield timing
+    finally:
+        learned_group.build_affine_template = build
+        learned.LearnedRegistration.train = train
+        learned.LearnedRegistration.register = register
+        learned.LearnedRegistration.train_step = step
+
+
+def phase_learned(kernels, work, smi, cases):
+    """LearnedGroupRegistration at full width on the 2x1 cohort with the
+    training cut to LEARNED_STEPS steps: K1's launches from its forward
+    passes (this run only), the artifacts checked, seconds per template
+    volume, per training step and per pair."""
+    import torch
+
+    from deepwmh_tpu_torch.registration import learned, learned_group
+
+    sources = [(c, cases[c][0]) for c in ("src0", "src1")]
+    targets = [(c, cases[c][0]) for c in ("tgt0",)]
+    out = os.path.join(work, "reg", "out_learned")
+    with learned_timing() as timing:
         torch.cuda.reset_peak_memory_stats()
         for k in kernels.KERNELS.values():
             k.launches = 0
@@ -1948,18 +2000,13 @@ def phase_learned(kernels, work, smi, cases):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: k.launches for name, k in kernels.KERNELS.items()}
-    finally:
-        learned_group.build_affine_template = build
-        learned.LearnedRegistration.train = train
-        learned.LearnedRegistration.register = register
-        learned.LearnedRegistration.train_step = step
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    pairs = ["src%d_to_tgt%d" % (s, t) for s in range(2) for t in range(2)]
+    pairs = ["src0_to_tgt0", "src1_to_tgt0"]
     blocks = 4 * lg.reg.plan.num_pools + 2
     for name in ("instance_norm_stats", "instance_norm_act"):
         check(launches[name] == len(pairs) * blocks,
-              "%s launched %d times on the learned path, expected %d (4 pairs x %d blocks)"
-              % (name, launches[name], len(pairs) * blocks, blocks))
+              "%s launched %d times on the learned path, expected %d (%d pairs x %d blocks)"
+              % (name, launches[name], len(pairs) * blocks, len(pairs), blocks))
     for pair in pairs:
         check(lg.pair_complete(*pair.split("_to_")), "%s incomplete" % pair)
         with open(os.path.join(out, pair, "affine.json")) as f:
@@ -2070,8 +2117,415 @@ def phase_reg_card_vs_cpu(work):
     emit({"phase": "reg_card_vs_cpu", "shape": list(shape), "tf32": False, **row})
 
 
-def main() -> int:
+E2E_SHAPE = (64, 80, 64)  # the phantom cohorts' shape, 2 mm
+E2E_SPACING = (2.0, 2.0, 2.0)
+# train_e2e's cut: the production plan at E2E_SHAPE, 4 / 6 epochs of 10 steps
+E2E_BUDGET = dict(stage2_epochs=4, stage3_epochs=6, batches_per_epoch=10)
+STAGE1_RECALL_FLOOR = 0.9  # tests/test_train_pipeline_e2e.py's floors
+STAGE1_DICE_FLOOR = 0.15
+
+
+def bit_diff(a, b) -> dict:
+    """Differing f32 words and differing bits between two arrays."""
+    x = (np.ascontiguousarray(a, np.float32).view(np.uint32)
+         ^ np.ascontiguousarray(b, np.float32).view(np.uint32))
+    return {"words": int((x != 0).sum()), "bits": int(np.unpackbits(x.view(np.uint8)).sum()),
+            "of": int(x.size)}
+
+
+def float_triangular_histogram(lo, w_lo, w_hi, nbins: int):
+    """C3's control: N4's histogram summed as it was before it took fixed
+    point, two f32 ``index_add_`` calls (float atomics on the card)."""
     import torch
+
+    hist = torch.zeros(nbins + 1, dtype=torch.float32, device=lo.device)
+    hist.index_add_(0, lo, w_lo).index_add_(0, lo + 1, w_hi)
+    return hist[:nbins]
+
+
+@contextlib.contextmanager
+def float_n4_histogram():
+    """N4 with ``float_triangular_histogram`` in place of its fixed-point
+    sum while the block runs; yields the dict counting its calls."""
+    from deepwmh_tpu_torch.ops import n4
+
+    check(callable(getattr(n4, "_triangular_histogram", None)),
+          "ops/n4.py has no _triangular_histogram to stand the control in for")
+    saved, calls = n4._triangular_histogram, {"n": 0}
+
+    def counted(*a):
+        calls["n"] += 1
+        return float_triangular_histogram(*a)
+
+    n4._triangular_histogram = counted
+    try:
+        yield calls
+    finally:
+        n4._triangular_histogram = saved
+
+
+def _stage1_scores(core, gt_paths) -> dict:
+    """Stage-1 recall and Dice of each case against its lesion GT."""
+    from deepwmh_tpu_torch.core import nifti
+
+    out = {}
+    for case, gp in gt_paths.items():
+        seg = nifti.load_nifti_simple(os.path.join(
+            core, "Stage_1_initial_segmentation", case, "segmentation_pp.nii.gz")) > 0.5
+        gt = nifti.load_nifti_simple(gp) > 0.5
+        out[case] = {"recall": float((seg & gt).sum()) / max(float(gt.sum()), 1.0),
+                     "dice": _dice(seg, gt)}
+    return out
+
+
+def _checkpoint_stamps(folder) -> dict:
+    return {os.path.join(d, f): os.path.getmtime(os.path.join(d, f))
+            for d, _, fs in os.walk(folder) for f in fs if f.endswith(".msgpack")}
+
+
+def n4_repeatability(work, out, core, cohort_flair, flair, pkg, pred):
+    """Fault C3: N4 twice on a cohort FLAIR (against each other and against
+    run_train's output) and once more on the flagship FLAIR (against the
+    main path's output): the corrected images' differing bits, and the
+    differing voxels of the stage-1 mask (stage-1 rerun on the second N4
+    image with run_train's registered references) and of the three predict
+    masks (the predict pipeline rerun with N4; ``pred`` is the main path's
+    output folder, ``flair`` its first case). The control: the same
+    readings with N4's histogram summed in f32 (``float_n4_histogram``),
+    two runs against each other."""
+    import torch
+
+    from deepwmh_tpu_torch.core import nifti
+    from deepwmh_tpu_torch.ops.n4 import n4_bias_correction
+    from deepwmh_tpu_torch.pipeline.analysis import LesionAnalyzer
+    from deepwmh_tpu_torch.unet.infer import SlidingWindowPredictor
+    from deepwmh_tpu_torch.unet.release import load_released_model
+
+    row = {}
+    raw, hdr = nifti.load_nifti(cohort_flair)
+    with torch.inference_mode():
+        a, b = (n4_bias_correction(torch.from_numpy(raw).to(DEVICE)).cpu().numpy()
+                for _ in range(2))
+    saved = nifti.load_nifti_simple(os.path.join(out, "001_Preprocessed", "SUB00.nii.gz"))
+    row["cohort_n4_twice"] = bit_diff(a, b)
+    row["cohort_n4_vs_run_train"] = bit_diff(b, saved)
+    second = os.path.join(work, "c3_SUB00_n4.nii.gz")
+    nifti.save_nifti(b, hdr, second)
+    refs = sorted(f[:-len("_to_SUB00.nii.gz")] for f in os.listdir(
+        os.path.join(out, "002_Registration")) if f.endswith("_to_SUB00.nii.gz"))
+    analyzer = LesionAnalyzer(os.path.join(work, "c3_stage1"), device=DEVICE)
+    analyzer.add_case(
+        "SUB00", second,
+        [os.path.join(out, "002_Registration", "%s_to_SUB00.nii.gz" % r) for r in refs],
+        [os.path.join(out, "003_Transformed", "%s_to_SUB00" % r, "label1.nii.gz") for r in refs],
+        [os.path.join(out, "003_Transformed", "%s_to_SUB00" % r, "label2.nii.gz") for r in refs])
+    analyzer.analyze_and_do_segmentation("+")
+    seg2 = nifti.load_nifti_simple(os.path.join(work, "c3_stage1", "SUB00",
+                                                "segmentation_pp.nii.gz"))
+    seg1 = nifti.load_nifti_simple(os.path.join(core, "Stage_1_initial_segmentation", "SUB00",
+                                                "segmentation_pp.nii.gz"))
+    row["stage1_mask_voxels_differing"] = int((seg1 != seg2).sum())
+
+    model, plan = load_released_model(pkg, device=DEVICE)
+    predictor = SlidingWindowPredictor(model, plan, device=DEVICE)
+    pre, seg_raw, seg_3mm, seg_fov, _ = predictor.predict_case_full(flair, FLAGSHIP_SPACING,
+                                                                    apply_n4=True)
+    row["flagship_n4_vs_main_path"] = bit_diff(pre.cpu().numpy(), nifti.load_nifti_simple(
+        os.path.join(pred, "001_Preprocessed_Images", "case0_0000.nii.gz")))
+    row["predict_mask_voxels_differing"] = {
+        key: int((mask.cpu().numpy().astype(np.float32) != nifti.load_nifti_simple(
+            os.path.join(pred, "002_Segmentations", folder, "case0.nii.gz"))).sum())
+        for key, mask, folder in (("raw", seg_raw, "001_raw"), ("3mm", seg_3mm, "002_postproc_3mm"),
+                                  ("fov", seg_fov, "003_postproc_fov"))}
+
+    # the control: N4's f32 histogram, two runs against each other
+    with float_n4_histogram() as calls, torch.inference_mode():
+        a, b = (n4_bias_correction(torch.from_numpy(raw).to(DEVICE)).cpu().numpy()
+                for _ in range(2))
+        (pre_a, *masks_a), (pre_b, *masks_b) = (
+            predictor.predict_case_full(flair, FLAGSHIP_SPACING, apply_n4=True)[:4]
+            for _ in range(2))
+    check(calls["n"] > 0, "the control never summed N4's histogram in f32")
+    row["float_histogram_control"] = {
+        "cohort_n4_twice": bit_diff(a, b),
+        "flagship_n4_twice": bit_diff(pre_a.cpu().numpy(), pre_b.cpu().numpy()),
+        "predict_mask_voxels_differing": {
+            key: int((ma != mb).sum().item())
+            for key, ma, mb in zip(("raw", "3mm", "fov"), masks_a, masks_b)},
+        "histogram_calls": calls["n"]}
+    # N4's histogram sums in fixed point: every rerun gives the same bits
+    check(row["cohort_n4_twice"]["words"] == row["cohort_n4_vs_run_train"]["words"]
+          == row["flagship_n4_vs_main_path"]["words"] == row["stage1_mask_voxels_differing"]
+          == 0 and not any(row["predict_mask_voxels_differing"].values()),
+          "N4 does not repeat bit for bit: %r" % row)
+    return row
+
+
+def released_model_checks(core, model_dir, pred_dir, test_case, test_flair) -> dict:
+    """What train_e2e's short training does produce, held where it is
+    exact: the installed release's held-out masks in this process equal
+    the predict CLI's, its foreground probability is finite and not
+    constant, and on each training case (TTA on) it gives stage 3-5's
+    training-fit mask. Returns the held-out foreground range and the
+    training-fit masks' voxels."""
+    from deepwmh_tpu_torch.core import nifti
+    from deepwmh_tpu_torch.unet.infer import SlidingWindowPredictor
+    from deepwmh_tpu_torch.unet.release import load_released_model
+
+    model, plan = load_released_model(model_dir, device=DEVICE)
+    predictor = SlidingWindowPredictor(model, plan, device=DEVICE)
+    _, seg_raw, seg_3mm, seg_fov, fg = predictor.predict_case_full(
+        nifti.load_nifti_simple(test_flair), nifti.get_nifti_pixdim(test_flair), apply_n4=True)
+    for mask, folder in ((seg_raw, "001_raw"), (seg_3mm, "002_postproc_3mm"),
+                         (seg_fov, "003_postproc_fov")):
+        cli = nifti.load_nifti_simple(os.path.join(pred_dir, "002_Segmentations", folder,
+                                                   "%s.nii.gz" % test_case))
+        check(np.array_equal(mask.cpu().numpy().astype(np.float32), cli),
+              "the predict CLI's %s mask is not the released model's" % folder)
+    fg = fg.cpu().numpy()
+    check(np.isfinite(fg).all() and fg.min() >= 0.0 and fg.max() <= 1.0 and fg.max() > fg.min(),
+          "held-out foreground probability out of [0, 1] or constant")
+    fit_dir = os.path.join(core, "Stage_3_DCNN_training", "002_training_fit")
+    trainfit = {}
+    for f in sorted(os.listdir(fit_dir)):
+        if not f.endswith(".nii.gz"):
+            continue
+        image = os.path.join(core, "Stage_1_initial_segmentation", f[:-len(".nii.gz")],
+                             "preprocessed_image.nii.gz")
+        seg, _ = predictor.predict_case(nifti.load_nifti_simple(image),
+                                        nifti.get_nifti_pixdim(image))
+        fit = nifti.load_nifti_simple(os.path.join(fit_dir, f))
+        agree = float((seg.cpu().numpy().astype(np.float32) == fit).mean())
+        check(agree > 0.999, "the release's fit of %s agrees with stage 3-5's on %.5f" % (f, agree))
+        trainfit[f[:-len(".nii.gz")]] = {"voxels": int(fit.sum()), "agreement": agree}
+    check(trainfit, "no stage 3-5 training fit found")
+    return {"fg_min": float(fg.min()), "fg_max": float(fg.max()), "trainfit": trainfit}
+
+
+def phase_train_e2e(kernels, work, smi, flair, pkg):
+    """DeepWMH_train end to end through run_train on a phantom cohort at
+    64x80x64 2 mm (3 references x 3 patients, 9 svf pairs, the production
+    plan, 4 / 6 epochs of 10 steps), K1's and K2's launches from that run;
+    the markers, registration artifacts, run_registration.sh, stage-1
+    against the phantom's lesions, the release installed and predicted on a
+    held-out patient through the CLIs in this process, a second run
+    through the train CLI in a subprocess that trains nothing; seconds per
+    stage and peak memory; then fault C3 (``n4_repeatability``). Returns
+    (launches, the stage-2 plan)."""
+    import torch
+
+    from deepwmh_tpu_torch.cli import install_model as install_cli
+    from deepwmh_tpu_torch.cli import predict as predict_cli
+    from deepwmh_tpu_torch.cli.train import run_train
+    from deepwmh_tpu_torch.core import nifti
+    from deepwmh_tpu_torch.eval.e2e import write_test_cases
+    from deepwmh_tpu_torch.eval.metrics import hard_dice_binary, voxel_precision_recall
+    from deepwmh_tpu_torch.eval.phantom import write_cohort
+    from deepwmh_tpu_torch.pipeline.multistage import PipelineMultistage, StageBudget
+    from deepwmh_tpu_torch.registration.policy import select_registration_mode
+    from deepwmh_tpu_torch.unet.plan import Plan, features_per_stage
+
+    root = os.path.join(work, "train_e2e")
+    data = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    ref_csv, train_csv, gt_paths = write_cohort(data, shape=E2E_SHAPE, spacing=E2E_SPACING,
+                                                n_ref=3, n_train=3, seed=0, device=DEVICE)
+    test_cases, test_gt = write_test_cases(data, E2E_SHAPE, E2E_SPACING, 3, 3, 1, 0,
+                                           device=DEVICE)
+    (test_case, test_flair), = test_cases
+    setup_s = time.perf_counter() - t0
+    mode = select_registration_mode(3, 3, volume_voxels=math.prod(E2E_SHAPE))
+    check(mode == "svf", "auto resolved to %s at 3 x 3 pairs of %s" % (mode, E2E_SHAPE))
+
+    out = os.path.join(root, "out")
+    budget = StageBudget(**E2E_BUDGET)
+    stats = {}
+    for k in kernels.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    core = run_train(ref_csv, train_csv, out, budget=budget, device=DEVICE, stage_stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    # each step and stage resets the card's peak counter when it starts
+    peak_gb = max(st.get("peak_gb", 0.0) for st in stats.values())
+    for name in ("instance_norm_stats", "instance_norm_act", "median3"):
+        check(launches[name] > 0, "%s was not launched on the train path" % name)
+    check(launches["median3"] == 3, "K2 launched %d times, one per case expected"
+          % launches["median3"])
+
+    for m in ("STAGE_1_INITIAL_SEGMENTATION", "STAGE_2-3_TRAINING_DENOISER",
+              "STAGE_2-4_RAW_SOFTMAX", "STAGE_2-5_MASKED_SOFTMAX", "STAGE_2-6_ENSEMBLING",
+              "STAGE_3-1_DATA_SPLIT", "STAGE_3-4_TRAINING", "STAGE_3-5_FINAL_FIT",
+              "PIPELINE_TRAINING_COMPLETE"):
+        check(os.path.isfile(os.path.join(core, "Checkpoints", m)), "marker %s missing" % m)
+    refs, subs = ["REF%02d" % i for i in range(3)], ["SUB%02d" % i for i in range(3)]
+    for r in refs:
+        for t in subs:
+            pair = os.path.join(out, "002_Registration", "%s_to_%s" % (r, t))
+            check(nifti.try_load_nifti(pair + ".nii.gz")
+                  and os.path.isfile(os.path.join(pair, "affine.json"))
+                  and nifti.try_load_nifti(os.path.join(pair, "warp.nii.gz")),
+                  "registration artifacts of %s incomplete" % pair)
+            for lab in ("label1", "label2"):
+                check(nifti.try_load_nifti(os.path.join(
+                    out, "003_Transformed", "%s_to_%s" % (r, t), lab + ".nii.gz")),
+                    "%s of %s_to_%s not propagated" % (lab, r, t))
+    with open(os.path.join(out, "run_registration.sh")) as f:
+        check("python -m deepwmh_tpu_torch.cli.group_register" in f.read(),
+              "run_registration.sh does not name the port's registration CLI")
+    stage1 = _stage1_scores(core, gt_paths)
+    for case, sc in stage1.items():
+        check(sc["recall"] > STAGE1_RECALL_FLOOR and sc["dice"] > STAGE1_DICE_FLOOR,
+              "stage-1 of %s: %r" % (case, sc))
+
+    # the release installed and predicted on the held-out patient
+    model_dir = os.path.join(root, "model")
+    pred_dir = os.path.join(root, "predict")
+    t0 = time.perf_counter()
+    install_cli.main(["-m", os.path.join(core, "Model_release", "model_release.tar.gz"),
+                      "-o", model_dir])
+    predict_cli.main(["-i", test_flair, "-n", test_case, "-m", model_dir, "-o", pred_dir,
+                      "--no-previews", "--device", DEVICE])
+    predict_s = time.perf_counter() - t0
+    pred = nifti.load_nifti_simple(os.path.join(pred_dir, "002_Segmentations",
+                                                "003_postproc_fov", "%s.nii.gz" % test_case))
+    gt = nifti.load_nifti_simple(test_gt[test_case])
+    check(pred.shape == E2E_SHAPE and np.isfinite(pred).all(), "held-out prediction")
+    heldout = released_model_checks(core, model_dir, pred_dir, test_case, test_flair)
+
+    # a second run through the CLI: every phase resumes, nothing is trained
+    stamps = _checkpoint_stamps(core)
+    stdout, rerun_s = _run_cli("deepwmh_tpu_torch.cli.train", [
+        "-s", ref_csv, "-t", train_csv, "-o", out,
+        "--stage2-epochs", str(budget.stage2_epochs), "--stage3-epochs",
+        str(budget.stage3_epochs), "--batches-per-epoch", str(budget.batches_per_epoch)],
+        timeout=300)
+    check(rerun_s < 60, "the train CLI's re-run took %.1f s" % rerun_s)
+    check(_checkpoint_stamps(core) == stamps and "epoch " not in stdout,
+          "the train CLI's re-run trained:\n%s" % stdout[-2000:])
+
+    s2_steps = budget.stage2_epochs * budget.batches_per_epoch
+    s3_steps = budget.stage3_epochs * budget.batches_per_epoch
+    plan = Plan.load(os.path.join(core, "DCNN_Outputs", PipelineMultistage.STAGE2_TASK,
+                                  "plan.json"))
+    row = {"phase": "train_e2e", "nvidia_smi": smi, "shape": list(E2E_SHAPE),
+           "spacing": list(E2E_SPACING), "references": 3, "patients": 3,
+           "registration_mode": mode, "budget": E2E_BUDGET,
+           "plan": {"patch_size": plan.patch_size, "batch_size": plan.batch_size,
+                    "num_pools": plan.num_pools, "widths": features_per_stage(plan)},
+           "setup_s": setup_s, "wall_s": wall, "peak_device_gb": peak_gb,
+           "launches": launches,
+           "stage_s": {"n4_s_per_volume": stats["n4"]["s"] / 6,
+                       "registration_s_per_pair": stats["registration"]["s"] / 9,
+                       "label_propagation_s": stats["label_propagation"]["s"],
+                       "stage1_s_per_case": stats["stage1"]["s"] / 3,
+                       "stage2_s_per_step": stats["2-3_training"]["s"] / s2_steps,
+                       "2-4_s": stats["2-4_raw_softmax"]["s"],
+                       "2-5_2-6_s": stats["2-5_masked_softmax"]["s"]
+                       + stats["2-6_ensembling"]["s"],
+                       "stage3_s_per_step": stats["3-4_training"]["s"] / s3_steps,
+                       "3-5_s": stats["3-5_final_fit"]["s"],
+                       "release_s": stats["release"]["s"]},
+           "stage_stats": stats,
+           "stage1": stage1,
+           "heldout_dice": hard_dice_binary(pred, gt),
+           "heldout_pr": voxel_precision_recall(pred, gt),
+           "released_model": heldout,
+           "install_predict_s": predict_s, "cli_rerun_s": rerun_s}
+    row["c3"] = n4_repeatability(root, out, core, os.path.join(data, "SUB00_flair.nii.gz"),
+                                 flair, pkg, os.path.join(work, "predict"))
+    emit(row)
+    return launches, plan
+
+
+def e2e_dice(smi, repeats=1) -> dict:
+    """``--e2e-dice``: run_e2e_accuracy at the JAX package's e2e accuracy
+    configuration (64x80x64 2 mm, 5 references, 3 patients, 2 held-out,
+    default_e2e_budget()) for seeds 0, 1 and 2, each with the svf and the
+    learned registration forced, ``repeats`` times: one line per run with
+    the held-out and stage-1 Dice, the wall and the registration's seconds
+    per pair; then each mode's means, each (seed, mode)'s run-to-run range
+    of the held-out Dice, each seed's svf - learned gap of the means, and
+    the policy readings at this shape."""
+    import torch
+
+    from deepwmh_tpu_torch.eval.e2e import run_e2e_accuracy
+    from deepwmh_tpu_torch.registration.learned import LearnedRegConfig
+
+    cfg = dict(n_ref=5, n_train=3, n_test=2)
+    pairs = cfg["n_ref"] * cfg["n_train"]
+    seeds, modes = (0, 1, 2), ("svf", "learned")
+    runs = []
+    for seed in seeds:
+        for mode in modes:
+            for rep in range(repeats):
+                with tempfile.TemporaryDirectory(prefix=".chip_smoke-e2e-", dir=HERE) as work:
+                    with learned_timing() as lt:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        res = run_e2e_accuracy(work, shape=E2E_SHAPE, spacing=E2E_SPACING,
+                                               seed=seed, registration_mode=mode,
+                                               device=DEVICE, **cfg)
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                reg_s = res["stage_stats"]["registration"]["s"]
+                row = {"phase": "e2e_dice", "nvidia_smi": smi, "seed": seed, "mode": mode,
+                       "repeat": rep, "heldout_dice": res["dice"],
+                       "heldout_per_case": res["heldout_dice"],
+                       "heldout_pr": res["heldout_pr"], "stage1_dice": res["stage1_dice"],
+                       "stage1_mean_dice": float(np.mean(list(res["stage1_dice"].values()))),
+                       "trainfit_dice": res["trainfit_dice"], "wall_s": wall,
+                       "registration_s": reg_s, "s_per_pair": reg_s / pairs,
+                       "stage_stats": res["stage_stats"]}
+                if mode == "learned":
+                    row.update(template_s=lt["template_s"], train_s=lt["train_s"],
+                               s_per_step=lt["train_s"] / LearnedRegConfig().steps,
+                               first_step_s=lt["first_step_s"],
+                               s_per_template_volume=lt["template_s"] / (cfg["n_ref"]
+                                                                         + cfg["n_train"]),
+                               s_per_learned_pair=(reg_s - lt["template_s"] - lt["train_s"])
+                               / pairs)
+                emit(row)
+                runs.append(row)
+    by_mode = {m: [r for r in runs if r["mode"] == m] for m in modes}
+    summary = {m: {"heldout_dice_mean": float(np.mean([r["heldout_dice"] for r in rs])),
+                   "stage1_dice_mean": float(np.mean([r["stage1_mean_dice"] for r in rs]))}
+               for m, rs in by_mode.items()}
+    cell = {(s, m): [r["heldout_dice"] for r in runs if r["seed"] == s and r["mode"] == m]
+            for s in seeds for m in modes}
+    spread = {"%d/%s" % k: float(max(v) - min(v)) for k, v in cell.items()}
+    gap = {str(s): float(np.mean(cell[(s, "svf")]) - np.mean(cell[(s, "learned")]))
+           for s in seeds}
+    learned = by_mode["learned"]
+    step = float(np.median([r["s_per_step"] for r in learned]))
+    readings = {
+        "shape": list(E2E_SHAPE),
+        "T_SVF_PAIR_S": float(np.median([r["s_per_pair"] for r in by_mode["svf"]])),
+        "T_LEARNED_PAIR_S": float(np.median([r["s_per_learned_pair"] for r in learned])),
+        "LEARNED_FIXED_COMPILE_S": float(np.median([r["first_step_s"] for r in learned])) - step,
+        "LEARNED_FIXED_SCALED_S": 10 * float(np.median(
+            [r["s_per_template_volume"] for r in learned]))
+        + LearnedRegConfig().steps * step}
+    emit({"phase": "e2e_dice_summary", "nvidia_smi": smi, "by_mode": summary,
+          "heldout_run_to_run_range": spread, "svf_minus_learned_by_seed": gap,
+          "policy_readings": readings})
+    return summary
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description="Smoke run of deepwmh_tpu_torch on one GPU.")
+    parser.add_argument("--e2e-dice", action="store_true",
+                        help="Instead of the smoke phases, the train -> predict accuracy "
+                        "loop at the e2e configuration, seeds 0-2, svf and learned.")
+    parser.add_argument("--repeats", type=int, default=1,
+                        help="--e2e-dice's runs of each (seed, mode) (default 1)")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2099,6 +2553,12 @@ def main() -> int:
         return out
 
     smi = run(phase_device, kernels)
+    if args.e2e_dice:
+        e2e_dice(smi, args.repeats)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     k1_entry, act_entry = run(phase_k1, kernels, default_plan_1mm_iso())
     k1_learned = run(phase_k1_learned, kernels)
     k2_entry = run(phase_k2, kernels)
@@ -2114,6 +2574,11 @@ def main() -> int:
         learned_launches, learned_row = run(phase_learned, kernels, work, smi, cases)
         run(phase_priors, work, smi, cases)
         run(phase_reg_card_vs_cpu, work)
+        train_launches, train_plan = run(phase_train_e2e, kernels, work, smi, flair, pkg)
+    t0 = time.perf_counter()
+    k1_train, act_train = phase_k1(kernels, train_plan, E2E_SHAPE, "k1_train",
+                                   "%dx%dx%d train-path" % E2E_SHAPE)
+    phase_s["k1_train"] = time.perf_counter() - t0
     run(phase_postproc_exact, flair)
     run(phase_stage1_card_vs_cpu, kernels)
     # each kernel's launches on its own path: K1's two on predict (and on
@@ -2134,10 +2599,17 @@ def main() -> int:
                      learned_plain_ms=k1_learned["learned_forward_act_plain_ms"],
                      learned_bound_ms=k1_learned["learned_forward_act_bound_ms"],
                      learned_per=learned_per)
-    check(set(launches) == set(stage1_launches) == set(learned_launches)
+    # and on the train path (stage 2-4 and 3-5 sweeps; stage-1's median)
+    for entry, train_entry in ((k1_entry, k1_train), (act_entry, act_train)):
+        entry.update({"train_" + key: train_entry[key] for key in
+                      ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "per")})
+        entry["train_launches"] = train_launches[entry["name"]]
+    k2_entry["train_launches"] = train_launches["median3"]
+    check(set(launches) == set(stage1_launches) == set(learned_launches) == set(train_launches)
           == {"instance_norm_stats", "instance_norm_act", "median3"},
           "unlisted kernels: %s" % sorted(launches))
-    # the readings behind registration/policy.py's constants
+    # the policy's readings at the flagship shape (registration/policy.py
+    # holds those of --e2e-dice at 64x80x64)
     emit({"phase": "policy_readings", "nvidia_smi": smi, "shape": list(FLAGSHIP_SHAPE),
           "T_SVF_PAIR_S": reg["s_per_pair"], "T_LEARNED_PAIR_S": learned_row["s_per_pair"],
           "LEARNED_FIXED_COMPILE_S": learned_row["first_step_s"] - learned_row["s_per_step"],

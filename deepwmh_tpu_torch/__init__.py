@@ -2,18 +2,25 @@
 
 A second package beside the JAX one, mirroring its layout:
 
-- ``core``      NIfTI I/O, artifact helpers, dataset checks
+- ``core``      NIfTI I/O, artifact helpers and marker checkpoints, dataset
+                checks
 - ``ops``       volume ops (N4, resampling, histograms, morphology,
-                connected components, brain mask, cohort statistics, NLL,
-                rank filters) and the hand-written CUDA kernels with their
-                plain PyTorch versions (``ops/kernels.py``, sources in
-                ``csrc/``)
-- ``unet``      plan, model-package reader/writer, 3D U-Net, inference
-- ``pipeline``  the per-case predict pipeline with resumable artifacts, and
-                stage-1 NLL lesion analysis (``pipeline/analysis.py``)
-- ``eval``      the GIF preview and stage-1's histogram plot
-- ``utils``     logging and threaded host I/O
-- ``cli``       ``python -m deepwmh_tpu_torch.cli.predict``
+                connected components and selection, brain mask, cohort
+                statistics, NLL, rank filters) and the hand-written CUDA
+                kernels with their plain PyTorch versions
+                (``ops/kernels.py``, sources in ``csrc/``)
+- ``unet``      plan, model packages (write, release, install), 3D U-Net,
+                inference, training
+- ``pipeline``  the per-case predict pipeline with resumable artifacts,
+                serving, stage-1 NLL lesion analysis and the 3-stage
+                self-training pipeline (``pipeline/multistage.py``)
+- ``registration``  affine + SVF group registration, the warm start, the
+                learned mode, tissue priors, the mode policy
+- ``eval``      voxel metrics, phantom cohorts and the train -> predict
+                accuracy harness, the GIF preview and stage-1's plot
+- ``utils``     logging, threaded host I/O, Adam
+- ``cli``       ``python -m deepwmh_tpu_torch.cli.<predict | serve | train |
+                install_model | group_register | priors>``
 
 Entry points run on CUDA unless the caller asks for the CPU. The package
 imports torch and never jax, flax or deepwmh_tpu; model packages are shared

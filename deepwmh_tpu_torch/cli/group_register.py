@@ -37,7 +37,7 @@ def device_from_args(parser, args):
     return "cuda:%d" % args.gpu if args.gpu is not None else args.device
 
 
-def main(argv=None):
+def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Register every source image onto every target image "
         "(rigid + affine + diffeomorphic SVF, PyTorch/CUDA).",
@@ -76,6 +76,11 @@ def main(argv=None):
                         "shortened schedule (needs >= 2 sources, --keep-deformation, no "
                         "--distributed/--batch-pairs).")
     add_device_args(parser)
+    return parser
+
+
+def main(argv=None):
+    parser = make_parser()
     args = parser.parse_args(argv)
     device = device_from_args(parser, args)
     if args.mesh:

@@ -12,8 +12,11 @@ Reproduced as written because they change the numbers: the histogram is
 sampled at ``[::2, ::2, :]``, and E[u|v] is evaluated through a K=24
 Chebyshev least-squares fit (pinv) with a Clenshaw recurrence rather than
 an exact table lookup (which would drift up to ~5e-3 of the intensity
-range). The triangular binning is two weighted ``index_add_`` calls, the
-same sum as the JAX compare-reduce in another order.
+range). The triangular binning is two weighted ``index_add_`` calls in
+32.32 fixed point: integer sums give the same bits in any order, while a
+float ``index_add_`` on the card adds with atomics in another order each
+run, which moves the predict masks between runs. The sum is the JAX
+compare-reduce's to within its f32 rounding.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ NBINS = 200
 FWHM = 0.15
 WIENER_NOISE = 0.01
 CHEB_K = 24
+FIXED_ONE = 2.0**32  # the histogram's fixed-point unit (one sample weighs <= 1)
 
 
 def _cubic_bspline_weights(t):
@@ -85,6 +89,20 @@ def _cheb_pinv(nbins: int, K: int) -> np.ndarray:
     return np.linalg.pinv(T).astype(np.float32)
 
 
+def _fixed(x):
+    """f32 weights in [0, 1] as int64 multiples of 1 / FIXED_ONE (sums of up
+    to 2^31 samples fit)."""
+    return torch.round(x.double() * FIXED_ONE).long()
+
+
+def _triangular_histogram(lo, w_lo, w_hi, nbins: int):
+    """f32 [nbins]: ``w_lo`` added into bins ``lo`` and ``w_hi`` into
+    ``lo + 1``, summed in fixed point (the same bits in any order)."""
+    hist = torch.zeros(nbins + 1, dtype=torch.int64, device=lo.device)
+    hist.index_add_(0, lo, _fixed(w_lo)).index_add_(0, lo + 1, _fixed(w_hi))
+    return (hist[:nbins].double() / FIXED_ONE).float()
+
+
 def _sharpen(v, mask, pinv, nbins=NBINS, fwhm=FWHM, noise=WIENER_NOISE):
     """Histogram sharpening: E[u|v] per voxel (the expected bias-free log
     intensity). ``pinv``: ``_cheb_pinv(nbins, K)`` on v's device."""
@@ -103,9 +121,7 @@ def _sharpen(v, mask, pinv, nbins=NBINS, fwhm=FWHM, noise=WIENER_NOISE):
     lo = torch.floor(pos_s)
     frac = pos_s - lo
     lo = lo.long()
-    hist = torch.zeros(nbins + 1, dtype=torch.float32, device=dev)
-    hist.index_add_(0, lo, w * (1.0 - frac)).index_add_(0, lo + 1, w * frac)
-    hist = hist[:nbins]
+    hist = _triangular_histogram(lo, w * (1.0 - frac), w * frac, nbins)
 
     # Wiener deconvolution with a Gaussian of the given FWHM (bin units)
     pad_n = nbins * 2
@@ -195,3 +211,23 @@ def n4_bias_correction(
     if return_bias:
         return corrected, bias
     return corrected
+
+
+# volumes at or above this many voxels take the JAX package's slab-sharded
+# N4 when more than one device is visible; that route is not ported
+N4_SHARD_MIN_VOXELS = 64_000_000
+
+
+def n4_bias_correction_auto(data, pinned: bool = False, **kwargs):
+    """``n4_bias_correction`` as the training CLI calls it. On one card, or
+    with the run ``pinned`` to a card (``-g i`` / ``--device``), it is
+    ``n4_bias_correction``; a volume of N4_SHARD_MIN_VOXELS or more with
+    several cards visible would take the sharded route, which is not ported
+    and raises."""
+    vox = math.prod(int(s) for s in data.shape)
+    if (vox >= N4_SHARD_MIN_VOXELS and not pinned and torch.cuda.is_available()
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError(
+            "N4 sharded over several cards (volumes of >= %d voxels) is not ported "
+            "yet (ROADMAP A13); pin the run to one card (-g i)" % N4_SHARD_MIN_VOXELS)
+    return n4_bias_correction(data, **kwargs)

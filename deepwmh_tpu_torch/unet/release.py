@@ -1,4 +1,4 @@
-"""Model packages: validate, resolve, load, write and release.
+"""Model packages: validate, resolve, load, write, release and install.
 
 A released model is a folder holding ``plan.json``, ``model_best.msgpack``
 (+ ``.json`` metadata) and a ``framework.json`` manifest — the layout
@@ -123,6 +123,16 @@ def release_model(train_dir: str, plan: Plan, out_folder: str, make_tarball=True
             if name != RELEASE_TARBALL:
                 tf.add(os.path.join(out, name), arcname=name)
     return tarball
+
+
+def install_model(tarball: str, dest_folder: str) -> str:
+    """Unpack a released model into ``dest_folder`` and validate it (the
+    package is relocatable: installing is extracting)."""
+    dest = mkdir(dest_folder)
+    with tarfile.open(tarball, "r:gz") as tf:
+        tf.extractall(dest, filter="data")
+    validate_model_dir(dest)
+    return dest
 
 
 def write_model_package(folder: str, model: UNet3D, plan: Plan,

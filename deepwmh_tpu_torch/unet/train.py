@@ -73,10 +73,12 @@ def augment_seed(seed: int, start_epoch: int) -> int:
 
 class Trainer:
     def __init__(self, plan: Plan, cfg: TrainConfig, out_dir: str, device=None,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, logger: SimpleTxtLog = None):
         """``device``: CUDA by default, the CPU only when asked for.
         ``dtype``: the compute dtype (bf16 as the JAX trainer; f32 for
-        exact comparisons)."""
+        exact comparisons). ``logger``: where the epoch lines go (the
+        pipeline passes its run log), ``training_log.txt`` in ``out_dir``
+        by default."""
         self.plan = plan
         self.cfg = cfg
         self.out_dir = out_dir
@@ -87,7 +89,7 @@ class Trainer:
         self.names = [n for n, _ in self.model.named_parameters()]
         self.params = [p for _, p in self.model.named_parameters()]
         self.trace = [torch.zeros_like(p) for p in self.params]
-        self.logger = SimpleTxtLog(os.path.join(out_dir, "training_log.txt"))
+        self.logger = logger or SimpleTxtLog(os.path.join(out_dir, "training_log.txt"))
         self.total_steps = cfg.epochs * cfg.batches_per_epoch
         self.history = []  # per epoch: {"epoch", "losses", "train_loss", "metric"}
 

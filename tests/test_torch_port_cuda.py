@@ -4,9 +4,10 @@ and with the same bits on every call), the wrappers' checks, the U-Net
 and the 3 mm median on the card against the CPU, a model on K1 refusing
 autograd, the trainer's model launching no K1, the serving burst
 against one-case runs, K1 at the learned registration network's shapes
-(C = 8, 16, 32) and registration's field gather on the card against the
-CPU. Every test here needs a card and skips without one; this
-file imports no JAX, so that it runs where JAX is absent:
+(C = 8, 16, 32), registration's field gather on the card against the
+CPU, and a tiny ``run_train`` on the card launching K1 and K2. Every test
+here needs a card and skips without one; this file imports no JAX, so
+that it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 """
@@ -307,3 +308,26 @@ def test_sample_channels_on_card_equals_cpu(cuda):
     want = sample_channels(field, coords)
     got = sample_channels(field.to(cuda), coords.to(cuda)).cpu()
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def test_run_train_on_card(cuda, tmp_path):
+    """The whole training flow on the card (tests/test_train_pipeline_e2e.py's
+    cohort, the default device): every marker, the release, and K1 (the
+    2-4 and 3-5 sweeps) and K2 (stage-1's median) launched. Widths 8 / 16:
+    K1's kernels read channels in 16-byte groups (C % 8 == 0)."""
+    import os
+
+    from deepwmh_tpu_torch.cli.train import run_train
+    from deepwmh_tpu_torch.pipeline.multistage import StageBudget
+    from torch_port_cohort import BUDGET, MARKERS, write_e2e_cohort
+
+    ref_csv, tr_csv, _ = write_e2e_cohort(str(tmp_path))
+    before = {name: k.launches for name, k in kernels.KERNELS.items()}
+    core = run_train(ref_csv, tr_csv, str(tmp_path / "out"), skip_bfc=True,
+                     budget=StageBudget(**dict(BUDGET, base_features=8, max_features=16)))
+    for m in MARKERS:
+        assert os.path.isfile(os.path.join(core, "Checkpoints", m)), m
+    assert os.path.isfile(os.path.join(core, "Model_release", "model_release.tar.gz"))
+    launched = {name: k.launches - before[name] for name, k in kernels.KERNELS.items()}
+    assert launched["median3"] == 2  # one per training case
+    assert launched["instance_norm_stats"] > 0 and launched["instance_norm_act"] > 0

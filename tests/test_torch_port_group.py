@@ -260,6 +260,25 @@ def test_policy_resolves_like_jax(monkeypatch):
         policy.select_registration_mode(1, 1, "fast")
 
 
+@pytest.mark.parametrize("S,T_,voxels,card,jax_mode", [
+    (5, 3, 64 * 80 * 64, "learned", "svf"),
+    (12, 14, 64 * 80 * 64, "learned", "svf"),
+    (3, 3, 64 * 80 * 64, "svf", "svf"),
+    (10, 50, 192 * 224 * 192, "learned", "learned"),
+])
+def test_policy_card_constants_pin_modes(S, T_, voxels, card, jax_mode):
+    """The modes the card's constants give (policy.py, read by
+    ``chip_smoke.py --e2e-dice`` at 64x80x64: 11.82 s an svf pair, 0.196 s
+    a learned pair, 68.7 s of learned fixed cost) beside JAX's. At 5 x 3
+    and 12 x 14 pairs they differ: known divergences of fault C1, which
+    stays open at both (ROADMAP C.1). At 5 x 3 the card's full loop
+    (held-out Dice, each mode forced) read svf higher, so nothing there
+    justifies learned; at 12 x 14 the card has no full-loop comparison.
+    3 x 3 is chip_smoke's train_e2e cohort; bench shape 10 x 50 agrees."""
+    assert policy.select_registration_mode(S, T_, volume_voxels=voxels) == card
+    assert jpolicy.select_registration_mode(S, T_, volume_voxels=voxels) == jax_mode
+
+
 def test_priors_match_jax(tmp_path):
     """synthetic_atlas and convert_freesurfer_aseg bit-equal; both priors
     CLIs (--quick, the synthetic atlas written by --make-atlas) on one

@@ -1,0 +1,248 @@
+"""deepwmh_tpu_torch's ``DeepWMH_train`` end to end on the CPU: one whole
+``run_train`` on ``tests/test_train_pipeline_e2e.py``'s cohort (24x24x20
+at 2 mm, 2 references, 2 patients, N4 skipped, 2/2 epochs x 2 batches at a
+16^3 budget, base 4 / max 8): the nine markers, the registration artifacts,
+stage-1 recall > 0.9 and Dice > 0.15 against the planted lesion (the JAX
+test's floors), the release, the seconds of each step and stage in
+``stage_stats``, a resume under 60 s; across packages, the
+port's release loads in JAX's ``load_released_model`` and JAX's pipeline
+finds every marker in the port's core folder and trains nothing. The CLI
+exits naming A13 with ``--mesh`` and refuses to run without a card unless
+asked for the CPU. ``run_e2e_accuracy`` and ``label_propagation_quality``
+run as the JAX package's slow tests do; a slow witness runs both packages'
+``run_train`` up to stage I on one e2e-sized cohort.
+"""
+
+import os
+import time
+
+import numpy as np
+import pytest
+
+import torch
+
+from deepwmh_tpu.pipeline import multistage as jms
+from deepwmh_tpu.unet.release import load_released_model as jload_released_model
+from deepwmh_tpu_torch.cli import install_model as install_cli
+from deepwmh_tpu_torch.cli import train
+from deepwmh_tpu_torch.core import nifti
+from deepwmh_tpu_torch.pipeline.multistage import StageBudget
+from torch_port_cohort import BUDGET, MARKERS, write_e2e_cohort
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("train"))
+    ref_csv, tr_csv, lesions = write_e2e_cohort(root)
+    out = os.path.join(root, "out")
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)  # tiny products; the test workers share the cores
+    stats = {}
+    try:
+        core = train.run_train(ref_csv, tr_csv, out, skip_bfc=True,
+                               budget=StageBudget(**BUDGET), device="cpu", stage_stats=stats)
+    finally:
+        torch.set_num_threads(saved)
+    return {"root": root, "ref_csv": ref_csv, "tr_csv": tr_csv, "lesions": lesions,
+            "out": out, "core": core, "stage_stats": stats}
+
+
+def _weights(core):
+    """mtime of every checkpoint file under the core folder."""
+    return {os.path.join(d, f): os.path.getmtime(os.path.join(d, f))
+            for d, _, fs in os.walk(core) for f in fs if f.endswith(".msgpack")}
+
+
+def test_run_train_sets_every_marker_and_releases(trained):
+    out, core = trained["out"], trained["core"]
+    assert core == os.path.join(out, "004_WMH_pipeline")
+    for m in MARKERS:
+        assert os.path.isfile(os.path.join(core, "Checkpoints", m)), m
+    assert nifti.try_load_nifti(os.path.join(out, "002_Registration", "REF0_to_SUB0.nii.gz"))
+    assert nifti.try_load_nifti(os.path.join(out, "003_Transformed", "REF1_to_SUB1",
+                                             "label1.nii.gz"))
+    with open(os.path.join(out, "run_registration.sh")) as f:
+        script = f.read()
+    assert "python -m deepwmh_tpu_torch.cli.group_register" in script
+    assert "--allow-quick-registration --allow-large-deformations" in script
+    for name in ("regsource.csv", "regtarget.csv"):
+        assert os.path.isfile(os.path.join(out, name))
+    assert nifti.try_load_nifti(os.path.join(
+        core, "Stage_2_label_denoising", "005_refined_label", "SUB0", "label_ensembled.nii.gz"))
+    assert os.path.isfile(os.path.join(core, "Stage_3_DCNN_training", "001_data_partitions",
+                                       "split.json"))
+    assert os.path.isfile(os.path.join(core, "Model_release", "model_release.tar.gz"))
+
+
+def test_run_train_records_each_step(trained):
+    """stage_stats holds the seconds of run_train's own steps and of every
+    pipeline stage and the release (no peak memory on the CPU)."""
+    stats = trained["stage_stats"]
+    assert list(stats) == ["n4", "registration", "label_propagation", "stage1", "2-2_dataset",
+                           "2-3_training", "2-4_raw_softmax", "2-5_masked_softmax",
+                           "2-6_ensembling", "3-3_dataset", "3-4_training", "3-5_final_fit",
+                           "release"]
+    assert all(set(st) == {"s"} and st["s"] >= 0.0 for st in stats.values()), stats
+    assert stats["registration"]["s"] > stats["label_propagation"]["s"]
+
+
+def test_stage1_detects_the_lesion(trained):
+    seg = nifti.load_nifti_simple(os.path.join(
+        trained["core"], "Stage_1_initial_segmentation", "SUB0", "segmentation_pp.nii.gz"))
+    les = trained["lesions"]["SUB0"]
+    inter = ((seg > 0.5) & (les > 0.5)).sum()
+    recall = inter / max((les > 0.5).sum(), 1)
+    dice = 2 * inter / max((seg > 0.5).sum() + (les > 0.5).sum(), 1)
+    assert recall > 0.9, "stage-1 recall too low: %.3f" % recall
+    assert dice > 0.15, "stage-1 dice too low: %.3f" % dice
+
+
+def test_resume_is_cheap_and_trains_nothing(trained):
+    before = _weights(trained["core"])
+    t0 = time.time()
+    train.run_train(trained["ref_csv"], trained["tr_csv"], trained["out"], skip_bfc=True,
+                    budget=StageBudget(**BUDGET), device="cpu")
+    assert time.time() - t0 < 60
+    assert _weights(trained["core"]) == before
+
+
+def test_release_installs_and_loads_in_jax(trained, tmp_path, capsys):
+    """The install CLI unpacks the port's release (and refuses a non-empty
+    folder without -f); JAX's load_released_model reads it."""
+    tarball = os.path.join(trained["core"], "Model_release", "model_release.tar.gz")
+    dest = str(tmp_path / "model")
+    install_cli.main(["-m", tarball, "-o", dest])
+    with pytest.raises(SystemExit, match="empty directory"):
+        install_cli.main(["-m", tarball, "-o", dest])
+    install_cli.main(["-i", tarball, "-o", dest, "-f"])
+    _, params, plan = jload_released_model(dest)
+    assert plan.base_features == 4 and plan.max_features == 8
+    assert "seg_head_0" in params
+
+
+def test_jax_pipeline_resumes_the_ports_core(trained):
+    """JAX's pipeline on the port's core folder: every marker found, no
+    checkpoint written."""
+    core = trained["core"]
+    before = _weights(core)
+    p = jms.PipelineMultistage(core, budget=jms.StageBudget(**BUDGET))
+    for c in ("SUB0", "SUB1"):
+        p.add_training_case(c, "unused", [], [], [])
+    p.run_training("full")
+    for m in MARKERS:
+        assert p.checkpoints.is_finished(m), m
+    assert _weights(core) == before
+
+
+def test_cli_mesh_exits_naming_a13(trained, capsys):
+    with pytest.raises(SystemExit) as err:
+        train.main(["-s", trained["ref_csv"], "-t", trained["tr_csv"], "-o",
+                    os.path.join(trained["root"], "cli"), "--mesh", "--device", "cpu"])
+    assert "A13" in str(err.value.code)
+
+
+def test_cli_refuses_to_run_without_a_card(trained, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = os.path.join(trained["root"], "cli")
+    with pytest.raises(SystemExit) as err:
+        train.main(["-s", trained["ref_csv"], "-t", trained["tr_csv"], "-o", out])
+    assert err.value.code == 1
+    assert "no CUDA device" in capsys.readouterr().out
+    assert not os.path.exists(out)
+
+
+@pytest.mark.slow
+def test_e2e_heldout_dice_floor(tmp_path):
+    """tests/test_e2e_accuracy.py's configuration and floors on the port."""
+    from deepwmh_tpu_torch.eval.e2e import run_e2e_accuracy
+
+    budget = StageBudget(stage2_epochs=6, stage3_epochs=14, batches_per_epoch=12,
+                         batch_size=2, voxel_budget=24**3, base_features=16,
+                         max_features=128)
+    res = run_e2e_accuracy(str(tmp_path), shape=(48, 56, 48), n_ref=4, n_train=2,
+                           n_test=1, budget=budget, run_stages="full", device="cpu")
+    assert min(res["stage1_dice"].values()) > 0.3, res["stage1_dice"]
+    assert res["dice"] >= 0.70, res
+    for case, (_, r) in res["heldout_pr"].items():
+        assert r >= 0.80, (case, r)
+    assert float(np.mean(list(res["trainfit_dice"].values()))) >= 0.70, res
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("mode,floor", [("svf", 0.75), ("learned", 0.72)])
+def test_label_propagation_quality_floor(tmp_path, mode, floor):
+    """tests/test_registration_quality.py's configuration and floors on the
+    port: two distinct phantom anatomies through the group registration."""
+    from deepwmh_tpu_torch.registration.learned import LearnedRegConfig
+    from deepwmh_tpu_torch.registration.quality import label_propagation_quality
+
+    cfg = LearnedRegConfig(steps=120) if mode == "learned" else None
+    q = label_propagation_quality(str(tmp_path), mode=mode, shape=(32, 40, 32),
+                                  learned_cfg=cfg, device="cpu")
+    assert q["unregistered_dice"] < 0.75, q
+    assert q["mean_fg_dice"] >= floor, q
+    assert q["mean_fg_dice"] > q["unregistered_dice"] + 0.10, q
+    assert q["brain_dice"] > 0.9, q
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("seed,n_ref,n_train", [(2, 5, 3), (0, 3, 3)])
+def test_stage1_witness_against_jax(tmp_path, seed, n_ref, n_train):
+    """Both packages' run_train up to stage I on one phantom cohort at
+    64x80x64 2 mm (N4 skipped, svf): the e2e accuracy configuration's 5
+    references x 3 patients at seed 2, and chip_smoke's train_e2e cohort
+    (3 x 3, seed 0). Each package's stage-1 Dice against the lesion GT
+    (the JAX test's floors), its propagated tissue labels against each
+    patient's own (the phantom's label2), and the two packages' propagated
+    labels against each other. The port's stage-1 Dice must be within 0.1
+    of JAX's and its mean propagated tissue Dice within 0.05. Prints the
+    readings as one JSON line."""
+    import json
+
+    from deepwmh_tpu.cli.train import run_train as jrun_train
+    from deepwmh_tpu_torch.eval.metrics import hard_dice_binary
+    from deepwmh_tpu_torch.eval.phantom import make_subject, write_cohort
+
+    shape = (64, 80, 64)
+    ref_csv, tr_csv, gt_paths = write_cohort(str(tmp_path / "data"), shape=shape, n_ref=n_ref,
+                                             n_train=n_train, seed=seed, device="cpu")
+    outs = {"jax": str(tmp_path / "jax"), "port": str(tmp_path / "port")}
+    jrun_train(ref_csv, tr_csv, outs["jax"], skip_bfc=True, run_stages="initseg",
+               registration_mode="svf")
+    train.run_train(ref_csv, tr_csv, outs["port"], skip_bfc=True, run_stages="initseg",
+                    registration_mode="svf", device="cpu")
+
+    def tissue_dice(a, b):
+        return float(np.mean([hard_dice_binary(a == c, b == c) for c in (1, 2, 3)]))
+
+    read = {"stage1_dice": {}, "propagated_tissue_dice": {}}
+    refs, subs = ["REF%02d" % i for i in range(n_ref)], ["SUB%02d" % i for i in range(n_train)]
+    truth = {s: make_subject(shape, seed + 1000 + i, lesion=True, device="cpu")["label2"]
+             for i, s in enumerate(subs)}
+    between = []
+    for pkg, out in outs.items():
+        read["stage1_dice"][pkg] = {s: hard_dice_binary(nifti.load_nifti_simple(os.path.join(
+            out, "004_WMH_pipeline", "Stage_1_initial_segmentation", s,
+            "segmentation_pp.nii.gz")), nifti.load_nifti_simple(gt_paths[s])) for s in subs}
+        read["propagated_tissue_dice"][pkg] = {}
+        for r in refs:
+            for s in subs:
+                lab = nifti.load_nifti_simple(os.path.join(
+                    out, "003_Transformed", "%s_to_%s" % (r, s), "label2.nii.gz"))
+                read["propagated_tissue_dice"][pkg]["%s_to_%s" % (r, s)] = tissue_dice(
+                    lab, truth[s])
+    for r in refs:
+        for s in subs:
+            j, p = (nifti.load_nifti_simple(os.path.join(
+                outs[k], "003_Transformed", "%s_to_%s" % (r, s), "label2.nii.gz"))
+                for k in ("jax", "port"))
+            between.append(tissue_dice(j, p))
+    means = {key: {pkg: float(np.mean(list(v.values()))) for pkg, v in read[key].items()}
+             for key in read}
+    print(json.dumps({"witness": "stage1", "seed": seed, "pairs": [n_ref, n_train],
+                      "means": means, "port_vs_jax_tissue_dice":
+                      float(np.mean(between)), **read}))
+    for pkg in outs:
+        assert min(read["stage1_dice"][pkg].values()) > 0.15, read["stage1_dice"]
+    assert abs(means["stage1_dice"]["port"] - means["stage1_dice"]["jax"]) < 0.1, means
+    assert abs(means["propagated_tissue_dice"]["port"]
+               - means["propagated_tissue_dice"]["jax"]) < 0.05, means
