@@ -86,12 +86,28 @@ Phases, each printing JSON lines to stdout:
    and the differing voxels of the stage-1 and predict masks they give,
    beside the same readings with N4's histogram summed in f32 (the
    control);
-19. k1_train: K1's two kernels at every [1, M, C] of the train path's
+19. convert_evaluate: a user moving from the reference. A Generic_UNet
+   replica at the flagship plan's widths (``tests/torch_port_nnunet.py``,
+   seeded weights) saved in the reference's install layout and converted
+   by ``python -m deepwmh_tpu_torch.cli.convert_torch`` (discovery
+   included); the converted model on the card against the replica on one
+   128x160x128 patch (f32 logits within atol 2e-4 / rtol 1e-3 with TF32
+   off, bf16 argmax agreement > 0.98, K1's launches counted by the wrappers
+   and seen by the profiler); the predict CLI on one flagship FLAIR with
+   TTA (seconds, K1's launches); the evaluate CLI over that mask and two
+   synthetic pairs of >= 200 lesions at 192x224x192 with all five metrics,
+   on the card and with ``--device cpu``: equal reports, equal to a scipy
+   reference (``scipy.ndimage.label``, 6-connectivity), seconds a case and
+   ``label_components`` rounds a mask; a rating workbook written and read
+   back, the score histogram PDF, and the boxplot and lightbox where
+   matplotlib / PIL are installed (a line says which were drawn);
+20. k1_train: K1's two kernels at every [1, M, C] of the train path's
    sweeps (the stage-2 plan at 64x80x64), checked and timed as in k1;
-20. kernels: one line listing each kernel with its launches on its path
+21. kernels: one line listing each kernel with its launches on its path
    (K1's statistics and apply kernels on the predict path and, as
-   ``learned_launches`` / ``train_launches``, on the learned registration
-   and on the train path; K2 on the stage-1 path and the train path),
+   ``learned_launches`` / ``train_launches`` / ``convert_launches``, on
+   the learned registration, on the train path and on the converted
+   model's predict CLI run; K2 on the stage-1 path and the train path),
    after a line of the policy's readings at the flagship shape.
 
 ``python3 chip_smoke.py --e2e-dice`` builds the kernels and then, instead
@@ -102,6 +118,8 @@ svf and with the learned registration forced, ``--repeats`` (1) times:
 one line per run (held-out and stage-1 Dice, wall, seconds per
 registration pair), then the means, the run-to-run ranges, the svf -
 learned gap a seed and the policy readings at that shape.
+``python3 chip_smoke.py --convert-evaluate`` builds the kernels and runs
+only the convert_evaluate phase.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``. A failed phase
 raises, and the script exits non-zero before printing it; so it does with no
@@ -261,28 +279,6 @@ def stats_shapes(plan, vol_shape):
             shape = [s // int(k) for s, k in zip(shape, plan.pool_kernels[i - 1])]
         out.append((tuple(shape), feats[i], 2 if i == plan.num_pools else 4))
     return out
-
-
-def forward_flops(plan, shape) -> int:
-    """Conv MACs x 2 of one batch-1 forward at ``shape`` without deep
-    supervision: two convs per encoder stage; per decoder stage the
-    transpose conv (one tap per output voxel) and two convs; the head."""
-    from deepwmh_tpu_torch.unet.plan import features_per_stage
-
-    feats = features_per_stage(plan)
-    spatial = [tuple(shape)]
-    for k in plan.pool_kernels:
-        spatial.append(tuple(-(-a // int(s)) for a, s in zip(spatial[-1], k)))
-    vox = [math.prod(s) for s in spatial]
-    kv = [math.prod(k) for k in plan.conv_kernels]
-    macs = vox[0] * feats[0] * plan.num_classes
-    cin = plan.in_channels
-    for i in range(plan.num_pools + 1):
-        macs += vox[i] * kv[i] * (cin + feats[i]) * feats[i]
-        cin = feats[i]
-    for i in range(plan.num_pools):
-        macs += vox[i] * feats[i] * (feats[i + 1] + 3 * feats[i] * kv[i])
-    return 2 * macs
 
 
 def phase_device(kernels):
@@ -623,6 +619,7 @@ def phase_main_path(kernels, work, smi):
 def sweep_rate(plan, profile, sweep_s):
     """Conv FLOP rate of the 8-flip sweep, over its wall time and over the
     time the profiler saw in convolution kernels."""
+    from deepwmh_tpu_torch.unet.flops import forward_flops
     from deepwmh_tpu_torch.unet.infer import ALL_FLIPS, fullvol_shape
 
     flop = len(ALL_FLIPS) * forward_flops(plan, fullvol_shape(FLAGSHIP_SHAPE, plan))
@@ -1264,6 +1261,7 @@ def phase_train(kernels, work, smi):
 
     from deepwmh_tpu_torch.unet import checkpoint as ckpt
     from deepwmh_tpu_torch.unet.data import SegDataset
+    from deepwmh_tpu_torch.unet.flops import forward_flops
     from deepwmh_tpu_torch.unet.infer import ALL_FLIPS, SlidingWindowPredictor
     from deepwmh_tpu_torch.unet.model import UNet3D
     from deepwmh_tpu_torch.unet.plan import default_plan_1mm_iso
@@ -1377,7 +1375,7 @@ def phase_train(kernels, work, smi):
     warp_ms = cuda_ms(lambda: (affine_warp(images[0], mat, order=1, center=center),
                                affine_warp(labels[0].float(), mat, order=0, center=center)),
                       iters=5)
-    fwd = cfg.batch_size * forward_flops(plan, tuple(plan.patch_size))
+    fwd = forward_flops(plan, tuple(plan.patch_size), cfg.batch_size)
     recompute = cfg.batch_size * remat_flops(plan, tuple(plan.patch_size))
     med = float(np.median(step_s[1:]))
     emit({"phase": "train", "nvidia_smi": smi, "plan": "default_plan_1mm_iso",
@@ -2440,6 +2438,328 @@ def phase_train_e2e(kernels, work, smi, flair, pkg):
     return launches, plan
 
 
+def planted_lesions(shape, n, seed):
+    """A bool mask of ``n`` balls of radius 1-3.5 voxels from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    truth = np.zeros(shape, bool)
+    g = np.ogrid[-4:5, -4:5, -4:5]
+    d2 = sum(a * a for a in g)
+    for _ in range(n):
+        r = rng.uniform(1.0, 3.5)
+        box = tuple(slice(c - 4, c + 5) for c in (rng.randint(6, s - 6) for s in shape))
+        truth[box] |= d2 <= r * r
+    return truth
+
+
+def lesion_pair(shape, n, seed):
+    """(pred, truth) f32 masks: truth ``planted_lesions``; pred that truth
+    shifted one voxel, eroded, with half of the eroded rim kept at random,
+    and n // 4 spurious 2x3x2 blobs."""
+    from scipy import ndimage
+
+    truth = planted_lesions(shape, n, seed)
+    rng = np.random.RandomState(seed + 1)
+    pred = np.roll(truth, 1, axis=0)
+    pred = ndimage.binary_erosion(pred) | (pred & (rng.rand(*shape) < 0.5))
+    for _ in range(n // 4):
+        c = [rng.randint(2, s - 4) for s in shape]
+        pred[c[0]:c[0] + 2, c[1]:c[1] + 3, c[2]:c[2] + 2] = True
+    return pred.astype(np.float32), truth.astype(np.float32)
+
+
+def scipy_metrics(pred, truth) -> dict:
+    """The five metrics of one case by a route independent of the port:
+    ``scipy.ndimage.label`` (6-connectivity, ids in raster order of each
+    component's first voxel) and, per truth lesion, the reference's
+    definition of its Dice on the bounding box of the lesion and of every
+    predicted component touching it."""
+    from scipy import ndimage
+
+    p, t = pred > 0.5, truth > 0.5
+    pl, pn = ndimage.label(p)
+    tl, tn = ndimage.label(t)
+    inter = int((p & t).sum())
+    row = {"dice": 2 * inter / (int(p.sum()) + int(t.sum())) if p.any() or t.any() else 1.0,
+           "precision": inter / int(p.sum()) if p.any() else 0.0,
+           "recall": inter / int(t.sum()) if t.any() else 0.0}
+    tp = int(np.count_nonzero(np.unique(pl[t])))
+    found = int(np.count_nonzero(np.unique(tl[p])))
+    row.update(tp=tp, fp=pn - tp, fn=tn - found)
+    row["instance_f1"] = 2 * tp / (2 * tp + row["fp"] + row["fn"]) if tp or pn or tn else 1.0
+    p_box, t_box = ndimage.find_objects(pl), ndimage.find_objects(tl)
+    lesions = []
+    for i in range(1, tn + 1):
+        touching = np.unique(pl[t_box[i - 1]][tl[t_box[i - 1]] == i])
+        touching = touching[touching > 0]
+        boxes = [t_box[i - 1]] + [p_box[j - 1] for j in touching]
+        box = tuple(slice(min(b[a].start for b in boxes), max(b[a].stop for b in boxes))
+                    for a in range(3))
+        ct = tl[box] == i
+        cp = np.isin(pl[box], touching) & ~(t[box] & ~ct)  # mP - (yt - cT)
+        lesions.append((int(ct.sum()), 2 * int((ct & cp).sum()) / (int(ct.sum()) + int(cp.sum()))))
+    row["component_dice"] = sorted(lesions, key=lambda e: e[0])
+    return row
+
+
+def phase_convert_evaluate(kernels, work, smi):
+    """A user of the reference moving to the port, through the CLIs' ``main``
+    with the argv a user gives them:
+
+    1. a Generic_UNet replica at the flagship plan's widths (seeded
+       weights, non-trivial instance-norm affines) saved in the reference's
+       install layout and converted by the convert CLI (discovery included);
+    2. the predict CLI on one flagship FLAIR with TTA (seconds, K1's
+       launches);
+    3. the evaluate CLI over that mask and two synthetic pairs of >= 200
+       lesions at 192x224x192 with all five metrics, with ``--device cpu``
+       (in a second thread, beside 4-5) and on the card: equal reports,
+       equal to a scipy reference; seconds a case, ``label_components``
+       rounds a mask;
+    4. the converted model against the replica on one 128x160x128 patch
+       (f32 logits with TF32 off, the bf16 argmax; K1's launches counted by
+       the wrappers and seen by the profiler);
+    5. a rating workbook written and read back, the score histogram PDF, the
+       boxplot and lightbox where matplotlib / PIL are installed.
+
+    Returns K1's launches (both kernels) from the predict CLI run."""
+    import importlib.util
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepwmh_tpu_torch.cli import convert_torch as convert_cli
+    from deepwmh_tpu_torch.cli import evaluate as evaluate_cli
+    from deepwmh_tpu_torch.cli import predict as predict_cli
+    from deepwmh_tpu_torch.core import nifti
+    from deepwmh_tpu_torch.core.xlsx import read_xlsx, write_xlsx
+    from deepwmh_tpu_torch.eval import stats
+    from deepwmh_tpu_torch.eval.metrics import METRICS
+    from deepwmh_tpu_torch.ops.components import label_components
+    from deepwmh_tpu_torch.unet.model import UNet3D
+    from deepwmh_tpu_torch.unet.plan import default_plan_1mm_iso
+    from deepwmh_tpu_torch.unet.release import load_released_model
+
+    sys.path.append(os.path.join(HERE, "tests"))
+    from torch_port_nnunet import plans_dict, seeded_replica, write_reference_install
+
+    dev = torch.device(DEVICE)
+    t_phase = last = time.perf_counter()
+    steps = {}  # seconds of each step of this phase
+
+    def lap(name):
+        nonlocal last
+        now = time.perf_counter()
+        steps[name] = now - last
+        last = now
+
+    # 1. the reference model, converted
+    plan = default_plan_1mm_iso()
+    net = seeded_replica(plan.pool_kernels, plan.conv_kernels, base=plan.base_features,
+                         num_classes=plan.num_classes, seed=0)
+    root = os.path.join(work, "reference_model")
+    write_reference_install(root, net, plans_dict(plan.pool_kernels, plan.conv_kernels,
+                                                  plan.patch_size, plan.target_spacing,
+                                                  base=plan.base_features,
+                                                  num_classes=plan.num_classes))
+    lap("replica")
+    pkg = os.path.join(work, "converted")
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        convert_cli.main(["-i", root, "-o", pkg])
+    check("nnUNetTrainerV2__nnUNetPlansv2.1/all/model_best.model" in said.getvalue(),
+          "the convert CLI did not find the install's checkpoint:\n" + said.getvalue()[-1000:])
+    lap("convert")
+
+    # 2. predict through the CLI (its integrity check launches K1's statistics once)
+    flair = synthetic_flair(FLAGSHIP_SHAPE, seed=21)
+    lesions = (planted_lesions(FLAGSHIP_SHAPE, 40, seed=22) & (flair > 200)).astype(np.float32)
+    hdr = nifti.NiftiHeader()
+    hdr.set_shape(FLAGSHIP_SHAPE)
+    hdr.set_zooms(FLAGSHIP_SPACING)
+    image = os.path.join(work, "conv0_flair.nii")
+    nifti.save_nifti(flair + 250.0 * lesions, hdr, image)
+    pred_out = os.path.join(work, "convert_predict")
+    for k in kernels.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predict_cli.main(["-i", image, "-n", "conv0", "-m", pkg, "-o", pred_out, "--no-previews",
+                      "--device", DEVICE])
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    blocks = 4 * plan.num_pools + 2
+    check(launches["instance_norm_stats"] == 8 * blocks + 1
+          and launches["instance_norm_act"] == 8 * blocks and launches["median3"] == 0,
+          "predict launched %s, expected %d a K1 kernel (8 flips x %d blocks; + 1 statistics "
+          "launch of the integrity check)" % (launches, 8 * blocks, blocks))
+    lap("predict")
+
+    # 3. evaluate: the predict output and two synthetic pairs; the CPU run
+    # in a second thread while the card works
+    preds, truths = os.path.join(work, "eval_pred"), os.path.join(work, "eval_truth")
+    os.makedirs(preds)
+    os.makedirs(truths)
+    shutil.copyfile(os.path.join(pred_out, "002_Segmentations", "003_postproc_fov", "conv0.nii.gz"),
+                    os.path.join(preds, "conv0.nii.gz"))
+    nifti.save_nifti(lesions, hdr, os.path.join(truths, "conv0.nii"))
+    for i in (1, 2):
+        pred, truth = lesion_pair(FLAGSHIP_SHAPE, 260, seed=22 + 2 * i)
+        nifti.save_nifti(pred, hdr, os.path.join(preds, "syn%d.nii" % i))
+        nifti.save_nifti(truth, hdr, os.path.join(truths, "syn%d.nii" % i))
+    cases = ["conv0", "syn1", "syn2"]
+    args = ["-p", preds, "-g", truths, "--metrics"] + list(METRICS)
+    lap("evaluate_inputs")
+    walls, reports = {}, {}
+
+    def evaluate(where):
+        t0 = time.perf_counter()
+        reports[where] = evaluate_cli.main(args + ["-o", os.path.join(work, "eval_%s.json" % where),
+                                                   "--device", DEVICE if where == "card" else "cpu"])
+        torch.cuda.synchronize()
+        walls[where] = time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(1)
+    cpu_run = pool.submit(evaluate, "cpu")
+    evaluate("card")
+    lap("evaluate_card")
+
+    # 4. the converted model against the replica on one patch of the FLAIR
+    lo = [(s - p) // 2 for s, p in zip(FLAGSHIP_SHAPE, plan.patch_size)]
+    patch = flair[tuple(slice(a, a + p) for a, p in zip(lo, plan.patch_size))]
+    x = torch.from_numpy((patch - patch.mean()) / patch.std()).to(dev)[None, None]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            model, cplan = load_released_model(pkg, device=dev, dtype=torch.float32)
+            check(cplan.pad_style == "torch" and cplan.base_features == plan.base_features,
+                  "converted plan %s" % cplan)
+            want = net.to(dev)(x)[-1]
+            before = {name: k.launches for name, k in kernels.KERNELS.items()}
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                got = model(x)
+                torch.cuda.synchronize()
+            forward_launches = {name: k.launches - before[name]
+                                for name, k in kernels.KERNELS.items()}
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            profiled = {"instance_norm_stats": sum("inorm_" in n and "inorm_act" not in n
+                                                   for n in names),
+                        "instance_norm_act": sum("inorm_act" in n for n in names)}
+            f32_err = float((got - want).abs().max())
+            f32_close = bool(torch.allclose(got, want, atol=2e-4, rtol=1e-3))
+            bf16 = UNet3D(cplan)  # bf16 compute, the weights just read
+            bf16.load_state_dict(model.state_dict())
+            bf16 = bf16.to(dev, memory_format=torch.channels_last_3d).eval()
+            del model
+            agree = float((bf16(x).argmax(1) == want.argmax(1)).float().mean())
+            del bf16, got, want
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    net.cpu()
+    del net
+    torch.cuda.empty_cache()
+    check(f32_close, "converted f32 logits differ from the replica's by %.3g" % f32_err)
+    check(agree > 0.98, "bf16 argmax agrees with the replica on only %.5f" % agree)
+    for name in ("instance_norm_stats", "instance_norm_act"):
+        check(forward_launches[name] == blocks and profiled[name] >= 1,
+              "%s: %d launches (profiler saw %d) on the converted forward, expected %d"
+              % (name, forward_launches[name], profiled[name], blocks))
+    lap("forward_check")
+
+    # the scipy reference and label_components' rounds
+    rounds, components, refs = {}, {}, {}
+    for case in cases:
+        pred = nifti.load_nifti_simple(os.path.join(
+            preds, case + (".nii.gz" if case == "conv0" else ".nii")))
+        truth = nifti.load_nifti_simple(os.path.join(truths, case + ".nii"))
+        refs[case] = scipy_metrics(pred, truth)
+        components[case] = {"truth": len(refs[case]["component_dice"]),
+                            "pred": refs[case]["tp"] + refs[case]["fp"]}
+        rounds[case] = {name: label_components(torch.from_numpy(m > 0.5).to(dev),
+                                               return_rounds=True)[1]
+                        for name, m in (("pred", pred), ("truth", truth))}
+        if case != "conv0":
+            check(min(components[case].values()) >= 200, "%s: %s" % (case, components[case]))
+    lap("reference_and_rounds")
+    cpu_run.result()
+    pool.shutdown()
+    lap("evaluate_cpu_wait")
+    for where in ("card", "cpu"):
+        with open(os.path.join(work, "eval_%s.json" % where)) as f:
+            check(json.load(f) == json.loads(json.dumps(reports["card"])),
+                  "the %s report differs from the card's" % where)
+    worst = 0.0
+    for case in cases:
+        got, ref = reports["card"]["cases"][case], refs[case]
+        for key in ("tp", "fp", "fn"):
+            check(got[key] == ref[key], "%s %s: %r, scipy %r" % (case, key, got[key], ref[key]))
+        check([tuple(e) for e in got["component_dice"]] == ref["component_dice"],
+              "%s: component Dice lists differ from scipy's" % case)
+        for key in ("dice", "precision", "recall", "instance_f1"):
+            worst = max(worst, abs(got[key] - ref[key]))
+            check(abs(got[key] - ref[key]) <= 1e-12, "%s %s: %r, scipy %r"
+                  % (case, key, got[key], ref[key]))
+
+    # 5. reports: a rating workbook read back, the score histogram card, plots
+    reports_dir = os.path.join(work, "reports")
+    os.makedirs(reports_dir)
+    methods = ["converted", "synthetic"]
+    wb = stats.VisualScoreEvaluation.make_matrix_workbook(
+        cases, methods, os.path.join(reports_dir, "rating.xlsx"), seed=0)
+    got_methods, got_cases = stats.VisualScoreEvaluation.parse_matrix_sheet(
+        wb, "Mapping", return_methods_and_subjects=True)
+    check(got_cases == cases and sorted(got_methods) == sorted(methods),
+          "rating workbook read back %s %s" % (got_methods, got_cases))
+    score = [["case", "seg_1", "seg_2"]] + [[c, 2, 1] for c in cases]
+    write_xlsx(wb, {"Score": score, "Mapping": read_xlsx(wb)["Mapping"]})
+    scored = stats.VisualScoreEvaluation.parse_matrix_sheet(wb)
+    check(all(sorted(scored[m][c] for m in methods) == ["1", "2"] for c in cases),
+          "scored workbook parsed to %s" % scored)
+    card = stats.VisualScoreEvaluation.score_histogram(
+        [reports["card"]["cases"][c]["dice"] for c in cases], len(cases),
+        os.path.join(reports_dir, "dice_histogram.pdf"))
+    with open(card, "rb") as f:
+        check(f.read(5) == b"%PDF-", "the score histogram is not a PDF")
+    drawn = {"boxplot": importlib.util.find_spec("matplotlib") is not None,
+             "lightbox": importlib.util.find_spec("PIL") is not None}
+    written = [wb, card]
+    if drawn["boxplot"]:
+        lesion_dice = [[d for _s, d in reports["card"]["cases"][c]["component_dice"]]
+                       for c in ("syn1", "syn2")]
+        written.append(os.path.join(reports_dir, "boxplot.png"))
+        stats.boxplot_compare(lesion_dice, ["syn1", "syn2"], written[-1],
+                              ylabel="per-lesion Dice")
+    if drawn["lightbox"]:
+        from deepwmh_tpu_torch.eval.preview import lightbox
+
+        written.append(os.path.join(reports_dir, "lightbox.png"))
+        lightbox(flair, written[-1], slice_step=16,
+                 lesion_mask=nifti.load_nifti_simple(os.path.join(preds, "conv0.nii.gz")))
+    check(all(os.path.getsize(f) > 0 for f in written), "a report is empty")
+    lap("reports")
+    print("convert_evaluate reports: rating workbook and score histogram PDF written; %s"
+          % ", ".join("%s %s" % (name, "drawn" if done else "not drawn (%s not installed)"
+                                 % ("matplotlib" if name == "boxplot" else "PIL"))
+                      for name, done in drawn.items()), flush=True)
+    emit({"phase": "convert_evaluate", "nvidia_smi": smi, "plan": "default_plan_1mm_iso",
+          "convert_s": steps["convert"], "patch": list(plan.patch_size),
+          "f32_max_abs_err_vs_replica": f32_err, "bf16_argmax_agreement": agree,
+          "forward_launches": forward_launches, "forward_profiled_launches": profiled,
+          "predict_shape": list(FLAGSHIP_SHAPE), "predict_tta_flips": 8,
+          "predict_s_per_volume": predict_s, "predict_launches": launches,
+          "evaluate_cases": cases, "evaluate_metrics": list(METRICS),
+          "evaluate_s_per_case": {w: walls[w] / len(cases) for w in walls},
+          "evaluate_card_equals_cpu": True, "scipy_max_abs_diff": worst,
+          "components": components, "label_components_rounds": rounds,
+          "summary": reports["card"]["summary"], "drawn": drawn,
+          "steps_s": steps, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def e2e_dice(smi, repeats=1) -> dict:
     """``--e2e-dice``: run_e2e_accuracy at the JAX package's e2e accuracy
     configuration (64x80x64 2 mm, 5 references, 3 patients, 2 held-out,
@@ -2525,6 +2845,9 @@ def main(argv=None) -> int:
                         "loop at the e2e configuration, seeds 0-2, svf and learned.")
     parser.add_argument("--repeats", type=int, default=1,
                         help="--e2e-dice's runs of each (seed, mode) (default 1)")
+    parser.add_argument("--convert-evaluate", action="store_true",
+                        help="Instead of every phase, only convert_evaluate (after the "
+                        "build).")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2559,6 +2882,15 @@ def main(argv=None) -> int:
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if args.convert_evaluate:
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=HERE) as work:
+            run(phase_convert_evaluate, kernels, work, smi)
+        emit({"phase": "done", "total_s": time.perf_counter() - t_start, "phase_s": phase_s,
+              "nvidia_smi": smi})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     k1_entry, act_entry = run(phase_k1, kernels, default_plan_1mm_iso())
     k1_learned = run(phase_k1_learned, kernels)
     k2_entry = run(phase_k2, kernels)
@@ -2575,6 +2907,7 @@ def main(argv=None) -> int:
         run(phase_priors, work, smi, cases)
         run(phase_reg_card_vs_cpu, work)
         train_launches, train_plan = run(phase_train_e2e, kernels, work, smi, flair, pkg)
+        convert_launches = run(phase_convert_evaluate, kernels, work, smi)
     t0 = time.perf_counter()
     k1_train, act_train = phase_k1(kernels, train_plan, E2E_SHAPE, "k1_train",
                                    "%dx%dx%d train-path" % E2E_SHAPE)
@@ -2605,8 +2938,11 @@ def main(argv=None) -> int:
                       ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "per")})
         entry["train_launches"] = train_launches[entry["name"]]
     k2_entry["train_launches"] = train_launches["median3"]
+    # and on the converted model's predict CLI run (phase convert_evaluate)
+    for entry in (k1_entry, act_entry):
+        entry["convert_launches"] = convert_launches[entry["name"]]
     check(set(launches) == set(stage1_launches) == set(learned_launches) == set(train_launches)
-          == {"instance_norm_stats", "instance_norm_act", "median3"},
+          == set(convert_launches) == {"instance_norm_stats", "instance_norm_act", "median3"},
           "unlisted kernels: %s" % sorted(launches))
     # the policy's readings at the flagship shape (registration/policy.py
     # holds those of --e2e-dice at 64x80x64)

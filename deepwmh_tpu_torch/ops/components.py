@@ -33,10 +33,11 @@ def _run_min(lbl, m, ax: int, N: int):
     return mins[rid].reshape(lt.shape).movedim(-1, ax)
 
 
-def label_components(mask, axes=(0, 1, 2), max_iters: int = 4096):
+def label_components(mask, axes=(0, 1, 2), max_iters: int = 4096, return_rounds: bool = False):
     """int64 labels shaped like ``mask``: the component's minimum linear
     index for foreground, N for background. ``axes`` restricts connectivity
-    (e.g. (1, 2) labels each [0]-slice independently)."""
+    (e.g. (1, 2) labels each [0]-slice independently). With
+    ``return_rounds``, (labels, rounds run, the last one changing nothing)."""
     m = mask > 0.5
     N = int(m.numel())
     idx = torch.arange(N, dtype=torch.long, device=m.device).reshape(m.shape)
@@ -47,7 +48,8 @@ def label_components(mask, axes=(0, 1, 2), max_iters: int = 4096):
         j = torch.minimum(flat, flat[flat.clamp(max=N - 1)])
         return torch.where(flat < N, j, N).reshape(l.shape)
 
-    for _ in range(max_iters):
+    rounds = 0
+    for rounds in range(1, max_iters + 1):
         l2 = lbl
         for ax in axes:
             l2 = _run_min(l2, m, ax, N)
@@ -56,7 +58,7 @@ def label_components(mask, axes=(0, 1, 2), max_iters: int = 4096):
         lbl = l2
         if not changed:
             break
-    return lbl
+    return (lbl, rounds) if return_rounds else lbl
 
 
 def component_sizes(lbl):

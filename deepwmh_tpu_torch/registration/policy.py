@@ -6,14 +6,18 @@ decision logic is the JAX package's, the timing constants are the H100's).
 costs scale with volume voxels, the learned mode pays a fixed cost (first
 launches, template construction and network training) that it must win
 back over the pairs. Auto picks learned only where the estimated SVF total
-exceeds QUALITY_INSURANCE_FACTOR x the learned total: the JAX package's
-full train -> predict loop measured SVF's pairs better for the final
-segmentation at small volumes and cohorts, so learned has to be much faster
-to be worth it. With the H100's constants below auto picks learned from
-13 pairs of 64x80x64, JAX's from 2,389: at 5 x 3 and 12 x 14 pairs
-the port's default differs from JAX's, and at 5 x 3 the
-card's full loop (``chip_smoke.py --e2e-dice``) read svf's held-out Dice
-higher. That is fault C1, open (ROADMAP C.1). A '--distributed a/b' shard
+exceeds QUALITY_INSURANCE_FACTOR x the learned total, and never for a
+cohort of at most SVF_QUALITY_MEASURED_PAIRS pairs: that is the largest
+cohort at which a full train -> predict loop, each mode forced, measured
+svf's held-out Dice at or above learned's. The JAX package's loop read svf
+0.931 against learned 0.780 at 15 pairs and 0.9451 against 0.8840 at 168
+pairs of 64x80x64 (``deepwmh_tpu/registration/policy.py``); the H100's
+loop at 5 x 3 pairs of the same shape read svf's mean over seeds 0-2
+higher, 0.8437 against 0.8240 (``chip_smoke.py --e2e-dice``). Within that
+range auto gives JAX's mode. Beyond it the card's cost model decides: it
+picks learned from 169 pairs of 64x80x64, JAX's from 2,389, because a
+learned pair costs about 60x less than an svf pair on the card (the
+constants below), not because of a fault. A '--distributed a/b' shard
 always resolves to svf (the learned mode trains one shared network).
 """
 
@@ -42,6 +46,9 @@ LEARNED_FIXED_SCALED_S = 68.7
 # svf must be this many times slower before auto trades away its measured
 # full-loop quality edge (not a timing)
 QUALITY_INSURANCE_FACTOR = 2.0
+# the largest cohort (pairs) with a full-loop quality measurement that
+# favours svf (module docstring); auto keeps svf up to it (not a timing)
+SVF_QUALITY_MEASURED_PAIRS = 168
 
 
 def estimated_totals_s(n_pairs: int, volume_voxels: int | None = None):
@@ -66,5 +73,8 @@ def select_registration_mode(n_sources: int, n_targets: int, mode: str = "auto",
         return mode
     if distributed is not None:
         return "svf"
-    svf_s, learned_s = estimated_totals_s(int(n_sources) * int(n_targets), volume_voxels)
+    n_pairs = int(n_sources) * int(n_targets)
+    if n_pairs <= SVF_QUALITY_MEASURED_PAIRS:
+        return "svf"
+    svf_s, learned_s = estimated_totals_s(n_pairs, volume_voxels)
     return "learned" if svf_s > QUALITY_INSURANCE_FACTOR * learned_s else "svf"

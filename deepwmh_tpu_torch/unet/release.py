@@ -15,9 +15,9 @@ import tarfile
 
 import torch
 
-from deepwmh_tpu_torch import __version__
 from deepwmh_tpu_torch.core.artifacts import atomic_write_json, mkdir
 from deepwmh_tpu_torch.device import resolve_device
+from deepwmh_tpu_torch.pkginfo import __version__
 from deepwmh_tpu_torch.unet import checkpoint as ckpt
 from deepwmh_tpu_torch.unet.model import UNet3D
 from deepwmh_tpu_torch.unet.plan import Plan

@@ -1,5 +1,5 @@
 """Host-side parallel fan-out for I/O-bound work (the port's copy of
-``deepwmh_tpu.utils.parallel.run_parallel`` and ``utils.misc.minibar``).
+``deepwmh_tpu.utils.parallel.run_parallel``).
 
 A thread pool: the host work is gzip/NIfTI I/O, whose zlib calls release
 the interpreter lock, while the compute runs on the card. The first worker
@@ -10,13 +10,7 @@ from __future__ import annotations
 
 from concurrent.futures import FIRST_EXCEPTION, ThreadPoolExecutor, wait
 
-
-def minibar(progress: float, width: int = 30, msg: str = "") -> str:
-    """Tiny text progress bar string."""
-    progress = min(max(progress, 0.0), 1.0)
-    filled = int(progress * width)
-    return "[%s%s] %3d%% %s" % ("#" * filled, "-" * (width - filled),
-                                int(progress * 100), msg)
+from deepwmh_tpu_torch.utils.misc import minibar
 
 
 def run_parallel(fn, tasks, num_workers: int = 8, desc: str = "", show_progress=True):

@@ -331,3 +331,89 @@ def test_run_train_on_card(cuda, tmp_path):
     launched = {name: k.launches - before[name] for name, k in kernels.KERNELS.items()}
     assert launched["median3"] == 2  # one per training case
     assert launched["instance_norm_stats"] > 0 and launched["instance_norm_act"] > 0
+
+
+def _lesion_masks(seed, shape=(40, 48, 36)):
+    """(pred, truth) f32 numpy masks with many components and size ties."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    truth = rng.rand(*shape) < 0.03
+    for _ in range(60):
+        c = [rng.randint(1, s - 4) for s in shape]
+        e = rng.randint(1, 4, 3)
+        truth[c[0]:c[0] + e[0], c[1]:c[1] + e[1], c[2]:c[2] + e[2]] = True
+    pred = (np.roll(truth, 1, axis=seed % 3) & (rng.rand(*shape) < 0.9)) | (rng.rand(*shape) < 0.02)
+    return pred.astype(np.float32), truth.astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_metrics_on_card_equal_cpu(cuda, seed):
+    """Components labelled on the card give the CPU's counts, per-lesion
+    Dice lists and rows exactly."""
+    from deepwmh_tpu_torch.eval import metrics
+
+    pred, truth = _lesion_masks(seed)
+    for a, b in ((pred, truth), (truth, pred)):
+        assert metrics.instance_confusion(a, b, device=cuda) == \
+            metrics.instance_confusion(a, b, device="cpu")
+        assert metrics.binary_component_dice(a, b, device=cuda) == \
+            metrics.binary_component_dice(a, b, device="cpu")
+    assert metrics.evaluate_masks(pred, truth, metrics.METRICS, device=cuda) == \
+        metrics.evaluate_masks(pred, truth, metrics.METRICS, device="cpu")
+    t = torch.from_numpy(truth)
+    assert metrics.instance_f1(t.to(cuda), t.to(cuda)) == 1.0
+
+
+def _converted(tmp_path, base):
+    from torch_port_nnunet import plans_dict, seeded_replica, write_reference_install
+
+    from deepwmh_tpu_torch.unet.torch_convert import convert_nnunet_model, find_nnunet_checkpoint
+
+    pools, convs = [[2, 2, 2], [1, 2, 2]], [[3, 3, 3]] * 3
+    net = seeded_replica(pools, convs, base=base, seed=0)
+    write_reference_install(str(tmp_path / "ref"), net,
+                            plans_dict(pools, convs, (16, 16, 16), (1.0, 1.0, 1.0), base=base))
+    return net, convert_nnunet_model(*find_nnunet_checkpoint(str(tmp_path / "ref")),
+                                     str(tmp_path / "pkg"))
+
+
+def test_converted_model_k1_forward_equals_plain(cuda, tmp_path):
+    """A converted package on the card (f32, TF32 off): the K1 forward
+    within K1's tolerances of the same weights on the plain chain, and of
+    the replica within the conversion's (atol 2e-4, rtol 1e-3)."""
+    from deepwmh_tpu_torch.unet.release import load_released_model
+
+    net, pkg = _converted(tmp_path, base=8)
+    model, plan = load_released_model(pkg, device=cuda, dtype=torch.float32)
+    plain = UNet3D(plan, dtype=torch.float32, fused_norm=False)
+    plain.load_state_dict(model.state_dict())
+    plain = plain.to(cuda, memory_format=torch.channels_last_3d).eval()
+    x = torch.randn((1, 1, 16, 24, 16), generator=torch.Generator().manual_seed(1)).to(cuda)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            before = kernels.instance_norm_stats.launches
+            got = model(x, deep_supervision=True)
+            torch.cuda.synchronize()
+            launched = kernels.instance_norm_stats.launches - before
+            want = plain(x, deep_supervision=True)
+            ref = net.to(cuda)(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert launched == 4 * plan.num_pools + 2
+    for g, w, r in zip(got, want, reversed(ref)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(g, r, atol=2e-4, rtol=1e-3)
+
+
+def test_converted_narrow_model_refuses_on_card(cuda, tmp_path):
+    """A converted plan whose widths are not multiples of 8 raises on the
+    card with K1's message; it never slips onto the plain chain."""
+    from deepwmh_tpu_torch.unet.release import load_released_model
+
+    _net, pkg = _converted(tmp_path, base=4)
+    model, _plan = load_released_model(pkg, device=cuda)
+    with torch.no_grad(), pytest.raises(ValueError, match="C % 8"):
+        model(torch.randn(1, 1, 16, 16, 16, device=cuda))

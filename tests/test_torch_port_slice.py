@@ -243,18 +243,21 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 
 @pytest.mark.parametrize("flagship", [True, False])
 def test_chip_smoke_flop_count_matches_jax(flagship):
-    """chip_smoke's analytic forward FLOPs equal deepwmh_tpu.unet.flops'."""
+    """chip_smoke's analytic forward FLOPs, the port's ``unet/flops.py``
+    (it keeps no count of its own), equal deepwmh_tpu.unet.flops'."""
     import chip_smoke
     from deepwmh_tpu.unet import flops as jflops
     from deepwmh_tpu.unet.plan import Plan as JPlan
     from deepwmh_tpu.unet.plan import default_plan_1mm_iso as jdefault
+    from deepwmh_tpu_torch.unet.flops import forward_flops
     from deepwmh_tpu_torch.unet.plan import Plan, default_plan_1mm_iso
 
     if flagship:
         plan, jplan, shape = default_plan_1mm_iso(), jdefault(), (192, 224, 192)
     else:
         plan, jplan, shape = tiny_plan(Plan), tiny_plan(JPlan), (48, 48, 40)
-    assert chip_smoke.forward_flops(plan, shape) == jflops.forward_flops(jplan, shape)
+    assert not hasattr(chip_smoke, "forward_flops")
+    assert forward_flops(plan, shape) == jflops.forward_flops(jplan, shape)
 
 
 def test_nifti_and_dataset_checks_match_jax(tmp_path):
