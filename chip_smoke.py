@@ -101,13 +101,37 @@ Phases, each printing JSON lines to stdout:
    ``label_components`` rounds a mask; a rating workbook written and read
    back, the score histogram PDF, and the boxplot and lightbox where
    matplotlib / PIL are installed (a line says which were drawn);
-20. k1_train: K1's two kernels at every [1, M, C] of the train path's
+20. dicom_predict: a scanner export through the port alone. The flagship
+   FLAIR quantized to uint16, written as a uint16 NIfTI and as a 192-slice
+   JPEG Lossless SV1 series (``tests/torch_port_dicom.py``'s writer, in a
+   pool of processes while the predict CLI runs on the NIfTI); the
+   dcm2niix CLI gives the source integers exactly and the sform within
+   1e-5 mm, with one native Huffman pass a slice and none in Python; the
+   predict CLI on the converted NIfTI (seconds, K1's launches) gives the
+   NIfTI input's N4 output, masks and foreground probability bit for bit;
+   then a 16-slice 224x192 series in each other syntax (explicit / implicit
+   VR LE, explicit BE, Deflated, RLE, JPEG Baseline 8-bit and Extended
+   12-bit, Lossless P14 predictor 7, JPEG-LS lossless and near 2, an
+   enhanced multi-frame JPEG Lossless file) through the CLI, checked
+   against its source (or, for DCT, the decode of its own streams), with
+   seconds a series and a slice, and each native route (Huffman pass,
+   predictor-7 reconstruction, JPEG-LS scan) against its Python version on
+   four slices with both times;
+21. oasis3_prep: the OASIS-3 recipe's ``prepare_reference_case`` for one
+   reference subject at 192x224x192 (that FLAIR, a T1w contrast remap of it
+   under a small known affine, the first atlas of ``registration_cohort``):
+   label1's brain Dice above the floor, label2 holding classes 1-3; then
+   ``evaluate_training_fit`` on three flagship cases (the dicom_predict
+   mask and two synthetic predictions, two synthetic raters each) on the
+   card and on the CPU: the same CSV;
+22. k1_train: K1's two kernels at every [1, M, C] of the train path's
    sweeps (the stage-2 plan at 64x80x64), checked and timed as in k1;
-21. kernels: one line listing each kernel with its launches on its path
+23. kernels: one line listing each kernel with its launches on its path
    (K1's statistics and apply kernels on the predict path and, as
-   ``learned_launches`` / ``train_launches`` / ``convert_launches``, on
-   the learned registration, on the train path and on the converted
-   model's predict CLI run; K2 on the stage-1 path and the train path),
+   ``learned_launches`` / ``train_launches`` / ``convert_launches`` /
+   ``dicom_launches``, on the learned registration, on the train path, on
+   the converted model's predict CLI run and on the predict CLI run on the
+   converted DICOM series; K2 on the stage-1 path and the train path),
    after a line of the policy's readings at the flagship shape.
 
 ``python3 chip_smoke.py --e2e-dice`` builds the kernels and then, instead
@@ -119,7 +143,8 @@ one line per run (held-out and stage-1 Dice, wall, seconds per
 registration pair), then the means, the run-to-run ranges, the svf -
 learned gap a seed and the policy readings at that shape.
 ``python3 chip_smoke.py --convert-evaluate`` builds the kernels and runs
-only the convert_evaluate phase.
+only the convert_evaluate phase; ``python3 chip_smoke.py --dicom`` builds
+them and runs only dicom_predict and oasis3_prep.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``. A failed phase
 raises, and the script exits non-zero before printing it; so it does with no
@@ -520,15 +545,12 @@ def phase_main_path(kernels, work, smi):
     from deepwmh_tpu_torch.ops.components import remove_3mm_sparks
     from deepwmh_tpu_torch.ops.n4 import n4_bias_correction
     from deepwmh_tpu_torch.unet.infer import ALL_FLIPS, SlidingWindowPredictor
-    from deepwmh_tpu_torch.unet.model import UNet3D, init_weights
     from deepwmh_tpu_torch.unet.plan import default_plan_1mm_iso
     from deepwmh_tpu_torch.unet.preprocess import preprocess_case, resample_to_shape
-    from deepwmh_tpu_torch.unet.release import load_released_model, write_model_package
+    from deepwmh_tpu_torch.unet.release import load_released_model
 
     plan = default_plan_1mm_iso()
-    model = init_weights(UNet3D(plan), torch.Generator().manual_seed(0))
-    pkg = write_model_package(os.path.join(work, "model"), model, plan, meta={"epoch": 0})
-    del model
+    pkg = flagship_package(work)
     cases, images, vols = ["case0", "case1"], [], []
     hdr = nifti.NiftiHeader()
     hdr.set_shape(FLAGSHIP_SHAPE)
@@ -2760,6 +2782,435 @@ def phase_convert_evaluate(kernels, work, smi):
     return launches
 
 
+DICOM_ORIGIN = (-95.5, 130.0, -71.0)  # mm, LPS, of the flagship series' first voxel
+DICOM_SMALL_SLICES = 16  # slices of each other syntax's series
+DICOM_PLAIN_SLICES = 4  # slices each native route also decodes in Python
+DICOM_ENCODE_WORKERS = 6
+DICOM_FOV = "002_Segmentations/003_postproc_fov/dcm0.nii.gz"
+
+
+def _encode_jobs(work, source):
+    """Every DICOM series of phase dicom_predict as ``write_series`` /
+    ``write_enhanced`` calls for a process pool: the flagship 192-slice
+    JPEG Lossless SV1 series in six parts, then one 16-slice series (in-plane
+    224x192, slices 88-103 of the first axis) for each other syntax.
+    Returns (jobs [(name, function name, args, kwargs)], {syntax name:
+    (folder, volume, syntax, lossless)})."""
+    import torch_port_dicom as W
+
+    flagship = os.path.join(work, "dicom", "flagship")
+    n = source.shape[2]
+    jobs = [("flagship", "write_series", (flagship, source, W.JPEG_LOSSLESS_SV1),
+             {"origin": DICOM_ORIGIN, "slices": range(i, n, DICOM_ENCODE_WORKERS)})
+            for i in range(DICOM_ENCODE_WORKERS)]
+    lo = source.shape[0] // 2 - DICOM_SMALL_SLICES // 2  # 88 at the flagship shape
+    vol16 = np.ascontiguousarray(np.moveaxis(source[lo:lo + DICOM_SMALL_SLICES], 0, -1))
+    vol12 = np.minimum(vol16 * 7, 4095).astype(np.uint16)
+    vol8 = np.round(vol16 * (255.0 / vol16.max())).astype(np.uint8)
+    series = {
+        "explicit_le": (W.EXPLICIT_LE, vol16, {}),
+        "implicit_le": (W.IMPLICIT_LE, vol16, {}),
+        "explicit_be": (W.EXPLICIT_BE, vol16, {}),
+        "deflated": (W.DEFLATED_LE, vol16, {}),
+        "rle": (W.RLE_LOSSLESS, vol16, {}),
+        "jpeg_baseline_8bit": (W.JPEG_BASELINE, vol8, {}),
+        "jpeg_extended_12bit": (W.JPEG_EXTENDED, vol12, {"precision": 12}),
+        "jpeg_lossless_p14_pred7": (W.JPEG_LOSSLESS_P14, vol16, {"predictor": 7}),
+        "jpegls_lossless": (W.JPEG_LS_LOSSLESS, vol12, {"precision": 12}),
+        "jpegls_near2": (W.JPEG_LS_NEAR, vol12, {"precision": 12, "near": 2}),
+        "enhanced_jpeg_lossless": (W.JPEG_LOSSLESS_SV1, vol16, {}),
+    }
+    out = {}
+    for name, (syntax, vol, kw) in series.items():
+        folder = os.path.join(work, "dicom", name)
+        if name.startswith("enhanced"):
+            os.makedirs(folder)
+            jobs.append((name, "write_enhanced", (os.path.join(folder, "enhanced.dcm"), vol,
+                                                  syntax), {"origin": DICOM_ORIGIN}))
+        else:
+            jobs.append((name, "write_series", (folder, vol, syntax),
+                         dict(kw, origin=DICOM_ORIGIN)))
+        out[name] = (folder, vol, syntax, syntax not in (W.JPEG_BASELINE, W.JPEG_EXTENDED,
+                                                         W.JPEG_LS_NEAR))
+    return jobs, out
+
+
+def _encode_job(name, function, args, kwargs):
+    """A process pool's task: one writer call; returns (name, CPU seconds)."""
+    import torch_port_dicom as W
+
+    t0 = time.process_time()
+    getattr(W, function)(*args, **kwargs)
+    return name, time.process_time() - t0
+
+
+def _series_streams(folder, count):
+    """The compressed streams of the first ``count`` slices of a series (its
+    files sorted by name, which is by position)."""
+    from deepwmh_tpu_torch.core.dicom import read_dicom
+
+    paths = sorted(os.path.join(folder, f) for f in os.listdir(folder))[:count]
+    return [b"".join(read_dicom(p)["pixel_data"]) for p in paths]
+
+
+def _plain_route(decode, streams, route):
+    """``decode`` of each stream natively, then inside ``python_path()``:
+    the arrays bit-equal, the route's native calls and Python calls counted
+    in their own runs; returns (native ms, Python ms) a slice."""
+    from deepwmh_tpu_torch import native
+
+    native.reset_counts()
+    t0 = time.perf_counter()
+    got = [decode(s)[0] for s in streams]
+    native_ms = (time.perf_counter() - t0) * 1e3 / len(streams)
+    check(native.CALLS[route] == len(streams) and sum(native.PYTHON_CALLS.values()) == 0,
+          "%s: native %s, Python %s" % (route, native.CALLS, native.PYTHON_CALLS))
+    native.reset_counts()
+    t0 = time.perf_counter()
+    with native.python_path():
+        want = [decode(s)[0] for s in streams]
+    python_ms = (time.perf_counter() - t0) * 1e3 / len(streams)
+    check(native.PYTHON_CALLS[route] == len(streams) and sum(native.CALLS.values()) == 0,
+          "%s in Python: native %s, Python %s" % (route, native.CALLS, native.PYTHON_CALLS))
+    for g, w in zip(got, want):
+        check(np.array_equal(g, w), "%s: the native decode differs from the Python one" % route)
+    return native_ms, python_ms
+
+
+def _predict_artifacts(out, case):
+    from deepwmh_tpu_torch.core import nifti
+
+    return {key: nifti.load_nifti_simple(os.path.join(out, rel % case)) for key, rel in (
+        ("pre", "001_Preprocessed_Images/%s_0000.nii.gz"),
+        ("raw", "002_Segmentations/001_raw/%s.nii.gz"),
+        ("3mm", "002_Segmentations/002_postproc_3mm/%s.nii.gz"),
+        ("fov", "002_Segmentations/003_postproc_fov/%s.nii.gz"))}
+
+
+def flagship_package(work):
+    """The flagship plan's model package with random weights from seed 0
+    (phase main_path's)."""
+    import torch
+
+    from deepwmh_tpu_torch.unet.model import UNet3D, init_weights
+    from deepwmh_tpu_torch.unet.plan import default_plan_1mm_iso
+    from deepwmh_tpu_torch.unet.release import write_model_package
+
+    plan = default_plan_1mm_iso()
+    model = init_weights(UNet3D(plan), torch.Generator().manual_seed(0))
+    return write_model_package(os.path.join(work, "model"), model, plan, meta={"epoch": 0})
+
+
+def phase_dicom_predict(kernels, work, smi, pkg):
+    """A user's scanner export through the port alone: DICOM -> the
+    dcm2niix CLI -> the predict CLI (in process, through ``main``).
+
+    1. The flagship FLAIR (seed 0) quantized to uint16 and written as a
+       uint16 NIfTI, and as a 192-slice JPEG Lossless SV1 series (1 mm, the
+       sform of the NIfTI) by a pool of writer processes, while the predict
+       CLI runs on the NIfTI;
+    2. the dcm2niix CLI on the series: the source integers exactly, the
+       sform within 1e-5 mm, ``jpegl_decode_diffs`` natively once a slice
+       and never in Python;
+    3. the predict CLI (8-flip TTA) on the converted NIfTI: K1's launches,
+       seconds a volume; its N4 output, masks and foreground probability
+       (the predictor on its N4 output) bit-equal to the NIfTI input's;
+    4. a 16-slice series at 224x192 in each other syntax through the CLI:
+       lossless ones exact, JPEG-LS near 2 within 2, the DCT ones equal to
+       the port's decode of the same streams; each native route (Huffman
+       pass, predictor 7 reconstruction, JPEG-LS scan) bit-equal to its
+       Python version on four slices, with both times.
+
+    Returns (K1's launches from the converted run, the converted NIfTI,
+    the source NIfTI, the predict output folder)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    sys.path.append(os.path.join(HERE, "tests"))
+    import torch_port_dicom as W
+
+    from deepwmh_tpu_torch import native
+    from deepwmh_tpu_torch.cli import dcm2niix as dcm2niix_cli
+    from deepwmh_tpu_torch.cli import predict as predict_cli
+    from deepwmh_tpu_torch.core import jlscodec, jpegcodec, nifti
+    from deepwmh_tpu_torch.unet.infer import SlidingWindowPredictor
+    from deepwmh_tpu_torch.unet.plan import default_plan_1mm_iso
+    from deepwmh_tpu_torch.unet.release import load_released_model
+
+    t_phase = last = time.perf_counter()
+    steps = {}
+
+    def lap(name):
+        nonlocal last
+        now = time.perf_counter()
+        steps[name] = now - last
+        last = now
+
+    native.get_lib()  # the host library's g++ build, kept out of the convert times
+    lap("native_build")
+    if pkg is None:
+        pkg = flagship_package(work)
+    source = np.round(synthetic_flair(FLAGSHIP_SHAPE, seed=0)).astype(np.uint16)
+    affine = W.expected_affine(FLAGSHIP_SPACING, DICOM_ORIGIN, (1, 0, 0, 0, 1, 0))
+    hdr = nifti.NiftiHeader()
+    hdr.set_shape(FLAGSHIP_SHAPE)
+    hdr.set_zooms(FLAGSHIP_SPACING)
+    hdr.srow, hdr.sform_code = affine[:3].astype(np.float32), 1
+    src_nii = os.path.join(work, "dicom_source.nii.gz")
+    nifti.save_nifti(source, hdr, src_nii, dtype="uint16")
+    lap("source")
+
+    # 1. the writers in a pool beside the predict CLI on the source NIfTI
+    jobs, small = _encode_jobs(work, source)
+    pool = ProcessPoolExecutor(DICOM_ENCODE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    t0 = time.perf_counter()
+    futures = [pool.submit(_encode_job, *job) for job in jobs]
+    out_src = os.path.join(work, "dicom_predict_source")
+    predict_cli.main(["-i", src_nii, "-n", "dcm0", "-m", pkg, "-o", out_src, "--no-previews",
+                      "--device", DEVICE])
+    torch.cuda.synchronize()
+    lap("predict_source_beside_encode")
+    encode_cpu_s = {}
+    for f in futures:
+        name, cpu_s = f.result()
+        encode_cpu_s[name] = encode_cpu_s.get(name, 0.0) + cpu_s
+    encode_wall_s = time.perf_counter() - t0
+    pool.shutdown()
+    lap("encode_wait")
+
+    # 2. the dcm2niix CLI on the flagship series
+    native.reset_counts()
+    t0 = time.perf_counter()
+    (converted,) = dcm2niix_cli.main(["-i", os.path.join(work, "dicom", "flagship"), "-o",
+                                      os.path.join(work, "dicom_nii")])
+    convert_s = time.perf_counter() - t0
+    calls, python_calls = dict(native.CALLS), dict(native.PYTHON_CALLS)
+    got, got_hdr = nifti.load_nifti(converted)
+    differing = int((got != source.astype(np.float32)).sum())
+    sform_err = float(np.abs(got_hdr.srow - affine[:3]).max())
+    check(got.shape == FLAGSHIP_SHAPE and differing == 0,
+          "converted flagship series: shape %s, %d voxels differ from the source"
+          % (got.shape, differing))
+    check(sform_err <= 1e-5, "converted sform off by %.3g mm" % sform_err)
+    n = FLAGSHIP_SHAPE[2]
+    check(calls["jpegl_decode_diffs"] == n and python_calls["jpegl_decode_diffs"] == 0,
+          "flagship import: native %s, Python %s (want %d native Huffman passes, none in "
+          "Python)" % (calls, python_calls, n))
+    lap("convert")
+
+    # 3. the predict CLI on the converted NIfTI
+    plan = default_plan_1mm_iso()
+    blocks = 4 * plan.num_pools + 2
+    out_conv = os.path.join(work, "dicom_predict")
+    for k in kernels.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predict_cli.main(["-i", converted, "-n", "dcm0", "-m", pkg, "-o", out_conv, "--no-previews",
+                      "--device", DEVICE])
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    check(launches["instance_norm_stats"] == 8 * blocks + 1
+          and launches["instance_norm_act"] == 8 * blocks and launches["median3"] == 0,
+          "predict on the converted series launched %s, expected %d / %d" %
+          (launches, 8 * blocks + 1, 8 * blocks))
+    lap("predict_converted")
+    arts = {w: _predict_artifacts(out, "dcm0") for w, out in (("converted", out_conv),
+                                                               ("source", out_src))}
+    dev = torch.device(DEVICE)
+    model, plan2 = load_released_model(pkg, device=dev)
+    predictor = SlidingWindowPredictor(model, plan2, device=dev)
+    fg = {}
+    with torch.inference_mode():
+        for w in arts:
+            fg[w] = predictor.predict_case(arts[w]["pre"], FLAGSHIP_SPACING)[1].cpu().numpy()
+    del model, predictor
+    mask_diff = {key: int((arts["converted"][key] != arts["source"][key]).sum())
+                 for key in ("pre", "raw", "3mm", "fov")}
+    mask_diff["fg_probability"] = int((fg["converted"] != fg["source"]).sum())
+    check(not any(mask_diff.values()),
+          "converted vs NIfTI input: differing voxels %s" % mask_diff)
+    lap("predict_compare")
+
+    # 4. every other syntax, 16 slices at 224x192
+    syntaxes = {}
+    for name, (folder, vol, syntax, lossless) in small.items():
+        t0 = time.perf_counter()
+        (path,) = dcm2niix_cli.main(["-i", folder, "-o", os.path.join(work, "dicom_nii_" + name)])
+        wall = time.perf_counter() - t0
+        got = nifti.load_nifti_simple(path)
+        check(got.shape == vol.shape, "%s: shape %s, want %s" % (name, got.shape, vol.shape))
+        err = float(np.abs(got - vol.astype(np.float32)).max())
+        row = {"convert_s": wall, "convert_s_per_slice": wall / vol.shape[2],
+               "encode_cpu_s": encode_cpu_s[name], "max_abs_err": err}
+        if lossless:
+            check(err == 0, "%s: lossless syntax off by %g" % (name, err))
+        elif syntax == W.JPEG_LS_NEAR:
+            check(err <= 2, "%s: near-lossless error %g > 2" % (name, err))
+        else:  # DCT: the port's own decode of the same streams
+            with native.python_path():
+                want = np.stack([jpegcodec.decode(s)[0] for s in
+                                 _series_streams(folder, vol.shape[2])], -1)
+            check(np.array_equal(got, want.astype(np.float32)),
+                  "%s: differs from the decode of its own streams" % name)
+        syntaxes[name] = row
+    lap("syntaxes")
+    flagship_streams = _series_streams(os.path.join(work, "dicom", "flagship"),
+                                       DICOM_PLAIN_SLICES)
+    routes = {}
+    for route, decode, folder in (
+            ("jpegl_decode_diffs", jpegcodec.decode, None),
+            ("jpegl_reconstruct", jpegcodec.decode, small["jpeg_lossless_p14_pred7"][0]),
+            ("jls_decode_scan", jlscodec.decode, small["jpegls_lossless"][0])):
+        streams = flagship_streams if folder is None else _series_streams(folder,
+                                                                          DICOM_PLAIN_SLICES)
+        native_ms, python_ms = _plain_route(decode, streams, route)
+        routes[route] = {"native_ms_per_slice": native_ms, "python_ms_per_slice": python_ms,
+                         "slices": len(streams),
+                         "slice": "192x224" if folder is None else "224x192"}
+    lap("plain_routes")
+    emit({"phase": "dicom_predict", "nvidia_smi": smi, "shape": list(FLAGSHIP_SHAPE),
+          "syntax": "JPEG Lossless SV1 (1.2.840.10008.1.2.4.70), precision 16",
+          "slices": n, "encode_wall_s": encode_wall_s, "encode_workers": DICOM_ENCODE_WORKERS,
+          "encode_cpu_s": encode_cpu_s, "convert_s": convert_s,
+          "convert_s_per_slice": convert_s / n, "native_calls": calls,
+          "python_calls": python_calls, "differing_voxels": differing,
+          "sform_max_abs_err_mm": sform_err, "predict_s_per_volume": predict_s,
+          "predict_launches": launches, "converted_vs_nifti_differing": mask_diff,
+          "fg_fraction": float(arts["converted"]["fov"].mean()), "syntaxes": syntaxes,
+          "native_routes": routes, "steps_s": steps, "phase_s": time.perf_counter() - t_phase})
+    return launches, converted, src_nii, out_conv
+
+
+def _t1w_of(flair, device):
+    """A T1w-like contrast remap of a flagship FLAIR, moved by a small known
+    affine (``small_affine``, seed 5); returns (T1w, the affine)."""
+    from deepwmh_tpu_torch.registration.affine import apply_affine
+
+    remap = np.where(flair > 100, 1200.0 - 1.5 * flair, 0.3 * flair).astype(np.float32)
+    mat = small_affine(FLAGSHIP_SHAPE, FLAGSHIP_SPACING, seed=5)
+    t1 = apply_affine(remap, mat, FLAGSHIP_SHAPE, FLAGSHIP_SPACING, FLAGSHIP_SPACING, order=1,
+                      device=device)
+    return t1.cpu().numpy(), mat
+
+
+def phase_oasis3_prep(work, smi, src_nii, dicom_mask_path, cases):
+    """The OASIS-3 recipe's steps on the port (``experiments/oasis3``):
+
+    1. ``prepare_reference_case`` (quick) for one reference subject at
+       192x224x192: the uint16 FLAIR of phase dicom_predict, a T1w
+       contrast remap of it under a small known affine, the first atlas of
+       ``registration_cohort`` (``synthetic_atlas`` seed 0, 4 classes):
+       label1's brain Dice against the phantom's head >= the floor, label2
+       holding classes 1-3;
+    2. ``evaluate_training_fit`` on three flagship cases (the dicom_predict
+       mask and two synthetic predictions, two synthetic raters each) on the
+       card and, in a second thread, on the CPU: the same CSV, number for
+       number."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from deepwmh_tpu_torch.core import nifti
+    from deepwmh_tpu_torch.experiments.oasis3.run_oasis3 import (
+        evaluate_training_fit,
+        prepare_reference_case,
+    )
+    from deepwmh_tpu_torch.registration.priors import synthetic_atlas
+
+    t_phase = last = time.perf_counter()
+    steps = {}
+
+    def lap(name):
+        nonlocal last
+        now = time.perf_counter()
+        steps[name] = now - last
+        last = now
+
+    root = os.path.join(work, "oasis3")
+    os.makedirs(root)
+    hdr = nifti.NiftiHeader()
+    hdr.set_shape(FLAGSHIP_SHAPE)
+    hdr.set_zooms(FLAGSHIP_SPACING)
+    flair = nifti.load_nifti_simple(src_nii)
+    t1, mat = _t1w_of(flair, DEVICE)
+    t1_path = os.path.join(root, "t1w_raw.nii.gz")
+    nifti.save_nifti(t1, hdr, t1_path)
+    if cases is None:  # --dicom: the same atlas registration_cohort writes
+        image, label = synthetic_atlas(FLAGSHIP_SHAPE, FLAGSHIP_SPACING, seed=0)
+        cases = {"src0": (os.path.join(root, "atlas_img.nii.gz"),
+                          os.path.join(root, "atlas_lbl.nii.gz"))}
+        nifti.save_nifti(image, hdr, cases["src0"][0])
+        nifti.save_nifti(label, hdr, cases["src0"][1])
+    lap("inputs")
+    torch.cuda.synchronize()
+    l1_path, l2_path = prepare_reference_case("ref0", t1_path, src_nii, *cases["src0"],
+                                              os.path.join(root, "prep"), quick=True,
+                                              device=DEVICE)
+    torch.cuda.synchronize()
+    lap("prepare_reference_case")
+    l1, l2 = nifti.load_nifti_simple(l1_path), nifti.load_nifti_simple(l2_path)
+    g = np.meshgrid(*[np.linspace(-1, 1, s) for s in FLAGSHIP_SHAPE], indexing="ij")
+    head = np.sqrt(sum(a ** 2 for a in g)) < 0.85  # synthetic_flair's head
+    dice = _dice(l1 > 0.5, head)
+    classes = sorted(np.unique(l2).tolist())
+    check(dice >= REG_BRAIN_DICE_FLOOR, "oasis3 prep: label1 brain Dice %.4f" % dice)
+    check({1.0, 2.0, 3.0} <= set(classes) <= {0.0, 1.0, 2.0, 3.0},
+          "oasis3 prep: label2 classes %s" % classes)
+
+    # 2. the training-fit evaluation over three flagship cases
+    fit, raters = os.path.join(root, "fit"), os.path.join(root, "raters")
+    names = ["dcm0", "syn1", "syn2"]
+    os.makedirs(fit)
+    for i, case in enumerate(names):
+        # rater 1 planted lesions, rater 2 the same shifted with half their
+        # rim kept; the synthetic cases' proposal rater 2 shifted once more
+        second, first = lesion_pair(FLAGSHIP_SHAPE, 120, seed=40 + 2 * i)
+        os.makedirs(os.path.join(raters, case))
+        nifti.save_nifti(first, hdr, os.path.join(raters, case, "rater_1.nii.gz"))
+        nifti.save_nifti(second, hdr, os.path.join(raters, case, "rater_2.nii.gz"))
+        fit_case = os.path.join(fit, "%s.nii.gz" % case)
+        if case == "dcm0":
+            shutil.copyfile(dicom_mask_path, fit_case)
+        else:
+            nifti.save_nifti(np.roll(second, 1, axis=2), hdr, fit_case)
+    lap("evaluate_inputs")
+    walls, csvs = {}, {}
+
+    def evaluate(where):
+        t0 = time.perf_counter()
+        out = os.path.join(root, "eval_" + where)
+        os.makedirs(out)
+        csvs[where] = evaluate_training_fit(names, fit, raters, out,
+                                            device=DEVICE if where == "card" else "cpu")
+        torch.cuda.synchronize()
+        walls[where] = time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(1)
+    cpu_run = pool.submit(evaluate, "cpu")
+    evaluate("card")
+    cpu_run.result()
+    pool.shutdown()
+    lap("evaluate")
+    rows = {}
+    for where, path in csvs.items():
+        with open(path) as f:
+            rows[where] = [line.strip().split(",") for line in f]
+    check(rows["card"] == rows["cpu"], "the card's CSV differs from the CPU's:\n%s\n%s"
+          % (rows["card"], rows["cpu"]))
+    check(rows["card"][0] == ["case", "intra-rater_variability", "proposed_vs_rater1",
+                              "proposed_vs_rater2"] and [r[0] for r in rows["card"][1:]] == names,
+          "evaluation CSV %s" % rows["card"])
+    emit({"phase": "oasis3_prep", "nvidia_smi": smi, "shape": list(FLAGSHIP_SHAPE),
+          "label1_brain_dice": dice, "label2_classes": classes,
+          "t1w_affine": mat.tolist(), "evaluation_csv": rows["card"],
+          "evaluate_s": walls, "card_csv_equals_cpu": True,
+          "steps_s": steps, "phase_s": time.perf_counter() - t_phase})
+
+
 def e2e_dice(smi, repeats=1) -> dict:
     """``--e2e-dice``: run_e2e_accuracy at the JAX package's e2e accuracy
     configuration (64x80x64 2 mm, 5 references, 3 patients, 2 held-out,
@@ -2848,6 +3299,9 @@ def main(argv=None) -> int:
     parser.add_argument("--convert-evaluate", action="store_true",
                         help="Instead of every phase, only convert_evaluate (after the "
                         "build).")
+    parser.add_argument("--dicom", action="store_true",
+                        help="Instead of every phase, only dicom_predict and oasis3_prep "
+                        "(after the build).")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2891,6 +3345,16 @@ def main(argv=None) -> int:
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if args.dicom:
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=HERE) as work:
+            _, _, src_nii, dicom_out = run(phase_dicom_predict, kernels, work, smi, None)
+            run(phase_oasis3_prep, work, smi, src_nii, os.path.join(dicom_out, DICOM_FOV), None)
+        emit({"phase": "done", "total_s": time.perf_counter() - t_start, "phase_s": phase_s,
+              "nvidia_smi": smi})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     k1_entry, act_entry = run(phase_k1, kernels, default_plan_1mm_iso())
     k1_learned = run(phase_k1_learned, kernels)
     k2_entry = run(phase_k2, kernels)
@@ -2908,6 +3372,8 @@ def main(argv=None) -> int:
         run(phase_reg_card_vs_cpu, work)
         train_launches, train_plan = run(phase_train_e2e, kernels, work, smi, flair, pkg)
         convert_launches = run(phase_convert_evaluate, kernels, work, smi)
+        dicom_launches, _, src_nii, dicom_out = run(phase_dicom_predict, kernels, work, smi, pkg)
+        run(phase_oasis3_prep, work, smi, src_nii, os.path.join(dicom_out, DICOM_FOV), cases)
     t0 = time.perf_counter()
     k1_train, act_train = phase_k1(kernels, train_plan, E2E_SHAPE, "k1_train",
                                    "%dx%dx%d train-path" % E2E_SHAPE)
@@ -2939,10 +3405,13 @@ def main(argv=None) -> int:
         entry["train_launches"] = train_launches[entry["name"]]
     k2_entry["train_launches"] = train_launches["median3"]
     # and on the converted model's predict CLI run (phase convert_evaluate)
+    # and on the predict CLI run on the converted DICOM series (dicom_predict)
     for entry in (k1_entry, act_entry):
         entry["convert_launches"] = convert_launches[entry["name"]]
+        entry["dicom_launches"] = dicom_launches[entry["name"]]
     check(set(launches) == set(stage1_launches) == set(learned_launches) == set(train_launches)
-          == set(convert_launches) == {"instance_norm_stats", "instance_norm_act", "median3"},
+          == set(convert_launches) == set(dicom_launches)
+          == {"instance_norm_stats", "instance_norm_act", "median3"},
           "unlisted kernels: %s" % sorted(launches))
     # the policy's readings at the flagship shape (registration/policy.py
     # holds those of --e2e-dice at 64x80x64)

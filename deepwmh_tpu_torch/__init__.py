@@ -3,7 +3,9 @@
 A second package beside the JAX one, mirroring its layout:
 
 - ``core``      NIfTI I/O, artifact helpers and marker checkpoints, dataset
-                checks, xlsx workbooks
+                checks, xlsx workbooks, the DICOM import (series -> NIfTI)
+                with its JPEG, JPEG-LS and JPEG 2000 codecs
+- ``native``    the import's host C++ hot loops, built with g++ at first use
 - ``ops``       volume ops (N4, resampling, histograms, morphology,
                 connected components and selection, brain mask, cohort
                 statistics, NLL, rank filters) and the hand-written CUDA
@@ -25,7 +27,8 @@ A second package beside the JAX one, mirroring its layout:
                 traces, small helpers
 - ``cli``       ``python -m deepwmh_tpu_torch.cli.<predict | serve | train |
                 install_model | group_register | priors | convert_torch |
-                evaluate>``
+                evaluate | dcm2niix>``
+- ``experiments``  the OASIS-3 replication recipe (``experiments.oasis3``)
 
 Entry points run on CUDA unless the caller asks for the CPU. The package
 imports torch and never jax, flax or deepwmh_tpu; model packages are shared

@@ -5,9 +5,10 @@ and the 3 mm median on the card against the CPU, a model on K1 refusing
 autograd, the trainer's model launching no K1, the serving burst
 against one-case runs, K1 at the learned registration network's shapes
 (C = 8, 16, 32), registration's field gather on the card against the
-CPU, and a tiny ``run_train`` on the card launching K1 and K2. Every test
-here needs a card and skips without one; this file imports no JAX, so
-that it runs where JAX is absent:
+CPU, a tiny ``run_train`` on the card launching K1 and K2, and the DICOM
+import's native host library built on the card's machine and equal to its
+Python versions. Every test here needs a card and skips without one; this
+file imports no JAX, so that it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 """
@@ -417,3 +418,43 @@ def test_converted_narrow_model_refuses_on_card(cuda, tmp_path):
     model, _plan = load_released_model(pkg, device=cuda)
     with torch.no_grad(), pytest.raises(ValueError, match="C % 8"):
         model(torch.randn(1, 1, 16, 16, 16, device=cuda))
+
+
+def test_native_host_library_builds_here(cuda):
+    """The DICOM import's host library builds from the checkout with this
+    machine's g++ into deepwmh_tpu_torch/_build/ and loads."""
+    import os
+
+    from deepwmh_tpu_torch import native
+
+    path = native.build()
+    assert os.path.isfile(path) and os.path.dirname(path) == native.BUILD_DIR
+    assert native.get_lib() is not None
+
+
+@pytest.mark.parametrize("route", ["jpegl_decode_diffs", "jpegl_reconstruct", "jls_decode_scan"])
+def test_native_import_equals_python_on_port_streams(cuda, route):
+    """Each native route against its Python version on streams the port's
+    encoders make of a 224x192 slice, bit for bit, each path counted."""
+    import numpy as np
+
+    from deepwmh_tpu_torch import native
+    from deepwmh_tpu_torch.core import jlscodec, jpegcodec
+
+    rng = np.random.RandomState(0)
+    g = np.meshgrid(np.linspace(-1, 1, 224), np.linspace(-1, 1, 192), indexing="ij")
+    img = ((np.hypot(*g) < 0.85) * (400 + 150 * rng.rand(224, 192))).astype(np.uint16)
+    if route == "jls_decode_scan":
+        stream, decode = jlscodec.encode(img, precision=12), jlscodec.decode
+    else:
+        predictor = 1 if route == "jpegl_decode_diffs" else 7
+        stream = jpegcodec.encode_lossless(img, predictor=predictor, precision=16)
+        decode = jpegcodec.decode
+    native.reset_counts()
+    got = decode(stream)[0]
+    assert native.CALLS[route] == 1 and sum(native.PYTHON_CALLS.values()) == 0
+    with native.python_path():
+        want = decode(stream)[0]
+    assert native.PYTHON_CALLS[route] == 1
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, img)

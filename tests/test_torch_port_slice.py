@@ -170,7 +170,9 @@ def _forbidden(module: str) -> bool:
 
 def test_port_sources_import_no_jax():
     files = sorted(glob.glob(os.path.join(REPO, "deepwmh_tpu_torch", "**", "*.py"), recursive=True))
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    # chip_smoke.py and the fixtures it imports on a machine without JAX
+    files += [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tests", name) for name in ("torch_port_dicom.py", "torch_port_nnunet.py")]
     assert len(files) > 20
     bad = []
     for path in files:
