@@ -34,7 +34,7 @@ Phases, each printing JSON lines to stdout:
 8. stage1_card_vs_cpu: the stage-1 core on the card against the CPU at
    96x112x96, 2 mm, K = 4;
 9. serve: ``python -m deepwmh_tpu_torch.cli.serve --once`` in a subprocess
-   over a spool of three flagship FLAIRs and a corrupt request (exit 1, the
+   over a spool of two flagship FLAIRs and a corrupt request (exit 1, the
    receipts, the quarantine, the artifacts), then in-process a burst of two
    (``SpoolServer(batch_max=2)``) against the same two served one by one:
    receipts, mask agreement, walls, K1 launches per volume, peak memory;
@@ -129,10 +129,24 @@ Phases, each printing JSON lines to stdout:
 23. kernels: one line listing each kernel with its launches on its path
    (K1's statistics and apply kernels on the predict path and, as
    ``learned_launches`` / ``train_launches`` / ``convert_launches`` /
-   ``dicom_launches``, on the learned registration, on the train path, on
-   the converted model's predict CLI run and on the predict CLI run on the
-   converted DICOM series; K2 on the stage-1 path and the train path),
-   after a line of the policy's readings at the flagship shape.
+   ``dicom_launches`` / ``mesh_launches``, on the learned registration, on
+   the train path, on the converted model's predict CLI run, on the predict
+   CLI run on the converted DICOM series and on the 8-shard mesh's
+   predict_case_full; K2 on the stage-1 path, the train path and, as
+   ``mesh_launches``, the halo-sharded median), after a line of the
+   policy's readings at the flagship shape;
+24. mesh (run right after serve): the device mesh's inference side on an
+   8-shard mesh whose shards all name this card (every exchange through
+   the mesh's collectives): ``predict_case_full`` on the main path's FLAIR
+   with the 8 flips one a shard against the unsharded predictor (masks and
+   N4 output equal, fg within 1e-6, K1 176 / 176, seconds, peak memory);
+   the patch mode's sharded sweep against the unsharded one (fg within
+   1e-5, masks > 99.9%); ``HaloShardedOps``' median (K2 once a slab, 0
+   differing voxels against K2 on the whole volume), z-score, and N4 (rel
+   < 1e-3 in the brain against unsharded N4, the same bits twice); the
+   predict CLI with ``--mesh`` against ``-g 0`` (four artifacts equal);
+   ``cli.serve --mesh --once`` on two requests; stage-1 over the mesh (two
+   cases) equal to the one-by-one run.
 
 ``python3 chip_smoke.py --e2e-dice`` builds the kernels and then, instead
 of the phases, runs ``eval/e2e.run_e2e_accuracy`` at the e2e accuracy
@@ -144,7 +158,8 @@ registration pair), then the means, the run-to-run ranges, the svf -
 learned gap a seed and the policy readings at that shape.
 ``python3 chip_smoke.py --convert-evaluate`` builds the kernels and runs
 only the convert_evaluate phase; ``python3 chip_smoke.py --dicom`` builds
-them and runs only dicom_predict and oasis3_prep.
+them and runs only dicom_predict and oasis3_prep; ``python3 chip_smoke.py
+--mesh`` builds them and runs only mesh.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``. A failed phase
 raises, and the script exits non-zero before printing it; so it does with no
@@ -1028,7 +1043,7 @@ def phase_stage1(kernels, work, smi):
           # analyze_case outside the device stages: the host's stacking and
           # label-count work and the copies to and from the card
           "host_s": io, "analyze_case_outside_stages_s": io["analyze_case"] - stage_sum})
-    return launches
+    return launches, (inputs, out)
 
 
 def phase_stage1_card_vs_cpu(kernels):
@@ -1133,7 +1148,7 @@ def _served_pass(kernels, pkg, spool_files, out, batch_max, server_id):
 
 
 def phase_serve(kernels, work, pkg, smi):
-    """The port's serve CLI on a spool of three flagship FLAIRs and a corrupt
+    """The port's serve CLI on a spool of two flagship FLAIRs and a corrupt
     request (``--once`` must exit 1), then a burst of two in this process
     against the same two requests served one by one."""
     from deepwmh_tpu_torch.core import nifti
@@ -1143,7 +1158,7 @@ def phase_serve(kernels, work, pkg, smi):
     root = os.path.join(work, "serve")
     spool, out = os.path.join(root, "spool"), os.path.join(root, "out")
     os.makedirs(spool)
-    cases = ["req0", "req1", "req2"]
+    cases = ["req0", "req1"]
     for i, case in enumerate(cases):
         _write_flair(os.path.join(spool, case + ".nii.gz"), seed=10 + i)
     with open(os.path.join(spool, "corrupt.nii.gz"), "wb") as f:
@@ -1213,6 +1228,217 @@ def phase_serve(kernels, work, pkg, smi):
                                      for k in ("instance_norm_stats", "instance_norm_act")},
           "passes": passes, "burst_vs_solo_wall": passes["burst"]["wall_s"] / passes["solo"]["wall_s"],
           "burst_vs_solo_mask_agreement": agreement})
+
+
+MESH_SHARDS = 8  # the 8-way mesh on one card (the JAX tests' 8 virtual devices)
+MESH_N4_REL = 1e-3  # tests/test_spatial_sharding.py's bar, in the brain
+MESH_PATCH_FG_ATOL = 1e-5  # the patch shards' accumulators add up in another order
+
+
+def _counted(kernels, fn):
+    """fn() with every kernel's count set to 0 just before and read just
+    after, between two synchronisations: (result, launches, seconds)."""
+    import torch
+
+    for k in kernels.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in kernels.KERNELS.items()}, time.perf_counter() - t0
+
+
+def phase_mesh(kernels, work, smi, pkg, flair, stage1=None):
+    """The inference side of the device mesh on an 8-shard mesh whose
+    shards all name this card (``Mesh([cuda:0] * 8)``): every exchange
+    goes through the mesh's collectives as on a node of eight cards.
+
+    - predict_case_full, flips dealt one a shard, against the unsharded
+      predictor (masks equal; fg within 1e-6, expected the same bits);
+    - the patch mode's sharded sweep against the unsharded one;
+    - HaloShardedOps' median (K2 once a slab) against K2 on the whole
+      volume, its z-score against ops.stats', N4 sharded against N4 (rel
+      in the brain; twice for the same bits);
+    - the predict CLI with --mesh against -g 0 (a one-card mesh: the same
+      bits), serve --mesh --once on two requests;
+    - stage-1 over the mesh (two cases) against the one-by-one run
+      (``stage1``: (inputs, output folder) of phase stage1's case0; run
+      here when absent)."""
+    import io
+
+    import torch
+
+    from deepwmh_tpu_torch.cli import predict as predict_cli
+    from deepwmh_tpu_torch.cli import serve as serve_cli
+    from deepwmh_tpu_torch.core import nifti
+    from deepwmh_tpu_torch.device import resolve_device
+    from deepwmh_tpu_torch.ops import stats
+    from deepwmh_tpu_torch.ops.n4 import n4_bias_correction
+    from deepwmh_tpu_torch.parallel.infer_sharded import ShardedSlidingWindowPredictor
+    from deepwmh_tpu_torch.parallel.mesh import Mesh
+    from deepwmh_tpu_torch.parallel.spatial import HaloShardedOps
+    from deepwmh_tpu_torch.pipeline.analysis import LesionAnalyzer
+    from deepwmh_tpu_torch.unet.infer import ALL_FLIPS, SlidingWindowPredictor, patch_positions
+    from deepwmh_tpu_torch.unet.preprocess import padded_shape
+    from deepwmh_tpu_torch.unet.release import load_released_model
+
+    dev = resolve_device(DEVICE)
+    mesh = Mesh([dev] * MESH_SHARDS)
+    model, plan = load_released_model(pkg, device=dev)
+    blocks = 4 * plan.num_pools + 2
+    out = {"phase": "mesh", "nvidia_smi": smi, "shards": MESH_SHARDS, "mesh_devices":
+           sorted({str(d) for d in mesh.devices}), "shape": list(FLAGSHIP_SHAPE)}
+
+    # 1. the whole predict case, flips dealt over the mesh (the main path),
+    # in turns with the unsharded predictor: unsharded, mesh, mesh, unsharded
+    single = SlidingWindowPredictor(model, plan, device=dev)
+    sharded = ShardedSlidingWindowPredictor(model, plan, mesh, tta=True, device=dev)
+    runs = {"unsharded": [], "mesh": []}
+    for name in ("unsharded", "mesh", "mesh", "unsharded"):
+        pred = sharded if name == "mesh" else single
+        if name == "mesh" and not runs["mesh"]:
+            torch.cuda.reset_peak_memory_stats()
+        runs[name].append(_counted(kernels, lambda: pred.predict_case_full(
+            flair, FLAGSHIP_SPACING, apply_n4=True)))
+        if name == "mesh" and len(runs["mesh"]) == 1:
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = runs["unsharded"][0][0]
+    expect = len(ALL_FLIPS) * blocks
+    fg_diff = 0.0
+    for got, launches, _ in runs["mesh"] + runs["unsharded"][1:]:
+        fg_diff = max(fg_diff, float((got[4] - want[4]).abs().max()))
+        for k, name in ((0, "N4 output"), (1, "seg_raw"), (2, "seg_3mm"), (3, "seg_fov")):
+            check(torch.equal(got[k], want[k]), "mesh predict_case_full: %s differs" % name)
+        for name in ("instance_norm_stats", "instance_norm_act"):
+            check(launches[name] == expect, "mesh predict: %s launched %d times, expected %d"
+                  % (name, launches[name], expect))
+    check(fg_diff <= 1e-6, "mesh predict_case_full: fg max abs diff %g" % fg_diff)
+    got, launches, _ = runs["mesh"][0]
+    out.update(predict_case_full={
+        "s": [r[2] for r in runs["mesh"]], "unsharded_s": [r[2] for r in runs["unsharded"]],
+        "fg_max_abs_diff": fg_diff, "fg_bit_equal": bool(torch.equal(got[4], want[4])),
+        "peak_device_gb": peak_gb, "launches": launches,
+        "fg_fraction": float(got[1].float().mean())})
+    mesh_launches = dict(launches)
+    del runs, got, want
+
+    # 2. the patch mode: positions in 8 blocks, accumulators psum'd
+    vol = torch.from_numpy(flair).to(dev)
+    p_single = SlidingWindowPredictor(model, plan, mode="patch", device=dev)
+    p_sharded = ShardedSlidingWindowPredictor(model, plan, mesh, tta=True, mode="patch", device=dev)
+    want_p, _, p_single_s = _counted(kernels, lambda: p_single.predict_case(vol, FLAGSHIP_SPACING))
+    got_p, p_launches, p_mesh_s = _counted(kernels, lambda: p_sharded.predict_case(
+        vol, FLAGSHIP_SPACING))
+    positions = int(patch_positions(padded_shape(FLAGSHIP_SHAPE, plan.patch_size),
+                                    plan.patch_size)[1].sum())
+    p_diff = float((got_p[1] - want_p[1]).abs().max())
+    p_agree = float((got_p[0] == want_p[0]).float().mean())
+    check(p_diff <= MESH_PATCH_FG_ATOL, "mesh patch sweep: fg max abs diff %g" % p_diff)
+    check(p_agree > 0.999, "mesh patch sweep: mask agreement %.6f" % p_agree)
+    check(p_launches["instance_norm_stats"] == positions * blocks,
+          "mesh patch sweep: K1 launched %d times, expected %d positions x %d blocks"
+          % (p_launches["instance_norm_stats"], positions, blocks))
+    out.update(patch={"s": p_mesh_s, "unsharded_s": p_single_s, "fg_max_abs_diff": p_diff,
+                      "mask_agreement": p_agree, "positions": positions, "launches": p_launches})
+
+    # 3. halo-sharded median and z-score, sharded N4
+    ops = HaloShardedOps(mesh)
+    sv = signed_volume(FLAGSHIP_SHAPE, seed=3)
+    whole = kernels.median3(sv)
+    med, med_launches, med_s = _counted(kernels, lambda: ops.median_filter(sv, 3))
+    med_ms = {"sharded": cuda_ms(lambda: ops.median_filter(sv, 3)),
+              "unsharded": cuda_ms(lambda: kernels.median3(sv))}
+    med_diff = int((med != whole).sum())
+    check(med_diff == 0, "halo-sharded median: %d voxels differ from K2 unsharded" % med_diff)
+    check(med_launches["median3"] == MESH_SHARDS,
+          "halo-sharded median: K2 launched %d times, expected one a slab (%d)"
+          % (med_launches["median3"], MESH_SHARDS))
+    head = vol > 100.0
+    z_diff = float((ops.z_score(vol, head) - stats.z_score(vol, head)).abs().max())
+    check(z_diff <= 1e-5, "halo-sharded z-score: max abs diff %g" % z_diff)
+    n4_want, _, n4_single_s = _counted(kernels, lambda: n4_bias_correction(vol))
+    n4_runs = [_counted(kernels, lambda: ops.n4_bias_correction(vol)) for _ in range(2)]
+    n4_got = n4_runs[0][0]
+    n4_rel = float(((n4_got - n4_want).abs() / n4_want.abs().clamp(min=1.0))[head].max())
+    n4_bits = bit_diff(n4_runs[0][0].cpu().numpy(), n4_runs[1][0].cpu().numpy())
+    check(n4_rel < MESH_N4_REL, "sharded N4: rel %.3g in the brain" % n4_rel)
+    check(n4_bits["words"] == 0, "sharded N4 differs run to run: %r" % n4_bits)
+    out.update(halo={"median_s": med_s, "median_ms": med_ms, "median_differing_voxels": med_diff,
+                     "median_launches": med_launches, "zscore_max_abs_diff": z_diff,
+                     "n4_s": [r[2] for r in n4_runs], "n4_unsharded_s": n4_single_s,
+                     "n4_rel_in_brain": n4_rel, "n4_run_to_run": n4_bits})
+    mesh_launches["median3"] = med_launches["median3"]
+
+    # 4. the predict CLI: --mesh (this process's cards) against -g 0
+    image = os.path.join(work, "mesh_case.nii.gz")
+    _write_flair(image, seed=0)
+    cli_s, cli_launches = {}, {}
+    pin = ["-g", str(dev.index)] if dev.type == "cuda" else ["--device", "cpu"]
+    for name, extra in (("mesh", ["--mesh"]), ("g0", pin)):
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            _, cli_launches[name], cli_s[name] = _counted(kernels, lambda: predict_cli.main([
+                "-i", image, "-n", "m0", "-m", pkg, "-o", os.path.join(work, "mesh_cli_" + name),
+                "--no-previews", "--skip-integrity-check"] + extra))
+        if name == "mesh":
+            line = "mesh: sharding each sweep over %d device(s)" % torch.cuda.device_count()
+            check(line in said.getvalue(), "predict --mesh did not say %r" % line)
+    arts = {n: _predict_artifacts(os.path.join(work, "mesh_cli_" + n), "m0") for n in cli_s}
+    for key in arts["g0"]:
+        check(np.array_equal(arts["mesh"][key], arts["g0"][key]),
+              "predict --mesh: %s differs from -g 0's" % key)
+    check(cli_launches["mesh"]["instance_norm_stats"] == expect,
+          "predict --mesh: K1 launched %d times" % cli_launches["mesh"]["instance_norm_stats"])
+    out.update(predict_cli={"s": cli_s, "launches": cli_launches, "artifacts_equal": True})
+
+    # 5. serve --mesh --once on two requests
+    spool, served = os.path.join(work, "mesh_spool"), os.path.join(work, "mesh_served")
+    os.makedirs(spool)
+    for i in range(2):
+        _write_flair(os.path.join(spool, "q%d.nii.gz" % i), seed=30 + i)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc, serve_launches, serve_s = _counted(kernels, lambda: serve_cli.main([
+            "-m", pkg, "-s", spool, "-o", served, "--once", "--settle-seconds", "0",
+            "--no-previews", "--server-id", "mesh", "--mesh"]))
+    check(rc == 0, "serve --mesh --once exited %r" % rc)
+    for i in range(2):
+        check(os.path.isfile(os.path.join(spool, ".done", "q%d.json" % i)), "q%d: no receipt" % i)
+        fov = nifti.load_nifti_simple(os.path.join(served, SERVE_ARTIFACTS[3] % ("q%d" % i)))
+        check(fov.shape == FLAGSHIP_SHAPE and np.isfinite(fov).all(), "q%d: bad FOV mask" % i)
+    check(serve_launches["instance_norm_stats"] == 2 * expect,
+          "serve --mesh: K1 launched %d times" % serve_launches["instance_norm_stats"])
+    out.update(serve_cli={"s": serve_s, "requests": 2, "launches": serve_launches})
+
+    # 6. stage-1 over the mesh: two cases dealt over the shards
+    if stage1 is None:
+        inputs = write_cohort(os.path.join(work, "cohort"), FLAGSHIP_SHAPE, FLAGSHIP_SPACING,
+                              STAGE1_K, seed=0)[:4]
+        solo = os.path.join(work, "stage1")
+        an = LesionAnalyzer(solo, device=dev)
+        an.add_case("case0", *inputs)
+        an.analyze_and_do_segmentation(intensity_prior="+")
+    else:
+        inputs, solo = stage1
+    an = LesionAnalyzer(os.path.join(work, "mesh_stage1"), device=dev)
+    for case in ("m0", "m1"):
+        an.add_case(case, *inputs)
+    _, s1_launches, s1_s = _counted(kernels, lambda: an.analyze_and_do_segmentation(
+        intensity_prior="+", mesh=mesh))
+    check(s1_launches["median3"] == 2, "stage-1 over the mesh: K2 launched %d times, expected 2"
+          % s1_launches["median3"])
+    for case in ("m0", "m1"):
+        for key in STAGE1_ARTIFACTS:
+            a = nifti.load_nifti_simple(os.path.join(work, "mesh_stage1", case, key + ".nii.gz"))
+            b = nifti.load_nifti_simple(os.path.join(solo, "case0", key + ".nii.gz"))
+            check(np.array_equal(a, b), "stage-1 over the mesh: %s %s differs from one by one"
+                  % (case, key))
+    out.update(stage1={"s": s1_s, "cases": 2, "launches": s1_launches, "equal_to_one_by_one": True})
+    check(set(launches) == set(med_launches) == set(s1_launches)
+          == {"instance_norm_stats", "instance_norm_act", "median3"},
+          "unlisted kernels on the mesh paths: %s" % sorted(launches))
+    emit(out)
+    return mesh_launches
 
 
 def remat_flops(plan, shape) -> int:
@@ -3302,6 +3528,8 @@ def main(argv=None) -> int:
     parser.add_argument("--dicom", action="store_true",
                         help="Instead of every phase, only dicom_predict and oasis3_prep "
                         "(after the build).")
+    parser.add_argument("--mesh", action="store_true",
+                        help="Instead of every phase, only mesh (after the build).")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3355,14 +3583,25 @@ def main(argv=None) -> int:
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if args.mesh:
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=HERE) as work:
+            run(phase_mesh, kernels, work, smi, flagship_package(work),
+                synthetic_flair(FLAGSHIP_SHAPE, seed=0))
+        emit({"phase": "done", "total_s": time.perf_counter() - t_start, "phase_s": phase_s,
+              "nvidia_smi": smi})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     k1_entry, act_entry = run(phase_k1, kernels, default_plan_1mm_iso())
     k1_learned = run(phase_k1_learned, kernels)
     k2_entry = run(phase_k2, kernels)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=HERE) as work:
         launches, flair, pkg = run(phase_main_path, kernels, work, smi)
         run(phase_card_vs_cpu, kernels, work)
-        stage1_launches = run(phase_stage1, kernels, work, smi)
+        stage1_launches, stage1 = run(phase_stage1, kernels, work, smi)
         run(phase_serve, kernels, work, pkg, smi)
+        mesh_launches = run(phase_mesh, kernels, work, smi, pkg, flair, stage1)
         run(phase_train, kernels, work, smi)
         run(phase_train_card_vs_cpu, kernels, work)
         src_csv, tgt_csv, cases, reg_out, reg = run(phase_group_register, kernels, work, smi)
@@ -3409,8 +3648,12 @@ def main(argv=None) -> int:
     for entry in (k1_entry, act_entry):
         entry["convert_launches"] = convert_launches[entry["name"]]
         entry["dicom_launches"] = dicom_launches[entry["name"]]
+    # and on the mesh paths (phase mesh): the 8-shard predict_case_full for
+    # K1's two, the halo-sharded median for K2
+    for entry in (k1_entry, act_entry, k2_entry):
+        entry["mesh_launches"] = mesh_launches[entry["name"]]
     check(set(launches) == set(stage1_launches) == set(learned_launches) == set(train_launches)
-          == set(convert_launches) == set(dicom_launches)
+          == set(convert_launches) == set(dicom_launches) == set(mesh_launches)
           == {"instance_norm_stats", "instance_norm_act", "median3"},
           "unlisted kernels: %s" % sorted(launches))
     # the policy's readings at the flagship shape (registration/policy.py

@@ -85,7 +85,7 @@ def main(argv=None):
     device = device_from_args(parser, args)
     if args.mesh:
         raise SystemExit("--mesh: multi-device pair sharding is not ported to the GPU "
-                         "package yet (ROADMAP A13); run without --mesh.")
+                         "package yet (ROADMAP A13, second half); run without --mesh.")
 
     src = load_csv_simple(args.source, key_names=["case", "data"])
     tgt = load_csv_simple(args.target, key_names=["case", "data"])

@@ -1,9 +1,8 @@
 """DeepWMH_predict on the GPU — ``python -m deepwmh_tpu_torch.cli.predict``.
 
-Same flags and output layout as ``deepwmh_tpu.cli.predict`` (less
-``--mesh``):
+Same flags and output layout as ``deepwmh_tpu.cli.predict``:
 
-  -i images -n names -m model -o output [-g i | --device cpu] [--skip-bfc]
+  -i images -n names -m model -o output [-g i | --device cpu | --mesh] [--skip-bfc]
   output/001_Preprocessed_Images/<case>_0000.nii.gz        (N4-corrected)
   output/002_Segmentations/001_raw/<case>.nii.gz           (raw U-Net seg)
   output/002_Segmentations/002_postproc_3mm/<case>.nii.gz  (3mm spark removal)
@@ -11,8 +10,10 @@ Same flags and output layout as ``deepwmh_tpu.cli.predict`` (less
   output/003_Previews/<case>.gif
 
 It runs on CUDA (``-g i`` picks ``cuda:i``); the CPU only with
-``--device cpu``. Every artifact is loadability-probed so re-running
-resumes where it stopped.
+``--device cpu``. ``--mesh`` spreads each volume's sweep over every card of
+this process (``parallel/infer_sharded.py``): minimum latency a volume,
+where ``-g`` runs one process a card for throughput. Every artifact is
+loadability-probed so re-running resumes where it stopped.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import os
 
 from deepwmh_tpu_torch.cli.integrity import check_system_integrity
 from deepwmh_tpu_torch.core.manifests import check_dataset
+from deepwmh_tpu_torch.parallel.mesh import make_mesh
 from deepwmh_tpu_torch.pipeline.inference import make_output_folders, predict_one_case
 
 
@@ -36,15 +38,25 @@ def run_predict(
     checkpoint_name: str = "model_best",
     task_name: str | None = None,
     device=None,
+    mesh=None,
 ):
     """Predict every case; ``device`` is CUDA by default ("cuda:i", or
-    "cpu" when asked for). Returns the FOV-masked segmentation folder."""
+    "cpu" when asked for). With ``mesh`` (a ``parallel.mesh.Mesh``) each
+    sweep is sharded over it, the rest of a case running on ``device`` or
+    the mesh's first device. Returns the FOV-masked segmentation folder."""
     from deepwmh_tpu_torch.unet.infer import SlidingWindowPredictor
     from deepwmh_tpu_torch.unet.release import load_released_model, resolve_model_dir
 
     model_dir = resolve_model_dir(model_dir, task_name)
-    model, plan = load_released_model(model_dir, checkpoint_name, device=device)
-    predictor = SlidingWindowPredictor(model, plan, tta=tta, device=device)
+    if mesh is not None:
+        from deepwmh_tpu_torch.parallel.infer_sharded import ShardedSlidingWindowPredictor
+
+        model, plan = load_released_model(model_dir, checkpoint_name,
+                                          device=mesh.devices[0] if device is None else device)
+        predictor = ShardedSlidingWindowPredictor(model, plan, mesh, tta=tta, device=device)
+    else:
+        model, plan = load_released_model(model_dir, checkpoint_name, device=device)
+        predictor = SlidingWindowPredictor(model, plan, tta=tta, device=device)
 
     folders = make_output_folders(output_folder)
     for case, image_path in zip(case_names, input_images):
@@ -78,6 +90,11 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="Device to run on: cuda, cuda:i or cpu. The CPU is "
                         "used only when asked for. Mutually exclusive with -g.")
+    parser.add_argument("--mesh", action="store_true",
+                        help="Shard each volume's TTA sweep over every card of this "
+                        "process for minimum per-volume latency (vs -g: N runs, one "
+                        "card each, for throughput). Mutually exclusive with -g and "
+                        "--device.")
     parser.add_argument("--skip-bfc", action="store_true",
                         help="[Advanced] Skip N4 bias field correction.")
     parser.add_argument("--custom-task-name", type=str, default=None,
@@ -95,6 +112,8 @@ def main(argv=None):
 
     if args.gpu is not None and args.device is not None:
         parser.error("-g/--gpu and --device are mutually exclusive")
+    if args.mesh and (args.gpu is not None or args.device is not None):
+        parser.error("--mesh and -g/--gpu or --device are mutually exclusive")
     device = "cuda:%d" % args.gpu if args.gpu is not None else args.device
 
     if len(args.case_names) != len(args.input_images):
@@ -112,6 +131,12 @@ def main(argv=None):
     if not check_dataset(dataset):
         raise SystemExit(1)
 
+    mesh = None
+    if args.mesh:
+        # this process's cards only: a single-process CLI
+        mesh = make_mesh(local=True)
+        print("mesh: sharding each sweep over %d device(s)" % mesh.size)
+
     run_predict(
         dataset["flair"],
         dataset["case"],
@@ -123,6 +148,7 @@ def main(argv=None):
         checkpoint_name=args.checkpoint,
         task_name=args.custom_task_name,
         device=device,
+        mesh=mesh,
     )
 
 

@@ -1,7 +1,7 @@
 """DeepWMH_serve on the GPU — ``python -m deepwmh_tpu_torch.cli.serve``.
 
 Warm-model spool-directory serving with the flags of
-``deepwmh_tpu.cli.serve``, less ``--mesh`` and the compilation cache:
+``deepwmh_tpu.cli.serve``, less the compilation cache:
 
   python -m deepwmh_tpu_torch.cli.serve -m MODEL -s SPOOL -o OUT          # poll until SPOOL/STOP
   python -m deepwmh_tpu_torch.cli.serve -m MODEL -s SPOOL -o OUT --once   # drain and exit
@@ -10,7 +10,9 @@ Request  = drop <case>.nii.gz into SPOOL.
 Response = DeepWMH_predict's output layout under OUT, plus a
            SPOOL/.done/<case>.json receipt (or .failed/<case>.err).
 It runs on CUDA (``-g i`` picks ``cuda:i``); the CPU only with
-``--device cpu``. ``--once`` exits 1 when any request failed.
+``--device cpu``. ``--mesh`` shards each volume's sweep over every card of
+this process, and bursts run one case a card. ``--once`` exits 1 when any
+request failed.
 """
 
 from __future__ import annotations
@@ -51,6 +53,11 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="Device to run on: cuda, cuda:i or cpu. The CPU is used "
                         "only when asked for. Mutually exclusive with -g.")
+    parser.add_argument("--mesh", action="store_true",
+                        help="Shard each volume's TTA/patch sweep over every card of this "
+                        "process (minimum per-volume latency). Without it, scale "
+                        "throughput by running one server per card against the same "
+                        "spool. Mutually exclusive with -g and --device.")
     parser.add_argument("--skip-bfc", action="store_true",
                         help="[Advanced] Skip N4 bias field correction.")
     parser.add_argument("--disable-tta", action="store_true",
@@ -65,14 +72,25 @@ def main(argv=None):
     parser.add_argument("--batch-max", type=int, default=None,
                         help="Burst batching: same-geometry requests pending at the "
                         "same moment run as ONE batched sweep, up to this many (a lone "
-                        "request never waits for companions). Default 1 (off).")
+                        "request never waits for companions). Default 1 (off) on one "
+                        "card; with --mesh one case a card, capped at the mesh size.")
     args = parser.parse_args(argv)
 
     if args.gpu is not None and args.device is not None:
         parser.error("-g/--gpu and --device are mutually exclusive")
+    if args.mesh and (args.gpu is not None or args.device is not None):
+        parser.error("--mesh and -g/--gpu or --device are mutually exclusive")
     device = "cuda:%d" % args.gpu if args.gpu is not None else args.device
 
     from deepwmh_tpu_torch.pipeline.serve import SpoolServer
+
+    mesh = None
+    if args.mesh:
+        from deepwmh_tpu_torch.parallel.mesh import make_mesh
+
+        # this process's cards only: a single-process server
+        mesh = make_mesh(local=True)
+        print("mesh: sharding each sweep over %d device(s)" % mesh.size)
 
     server = SpoolServer(
         args.spool,
@@ -89,6 +107,7 @@ def main(argv=None):
         task_name=args.custom_task_name,
         batch_max=args.batch_max,
         device=device,
+        mesh=mesh,
     )
 
     # finish the in-flight case, then exit cleanly

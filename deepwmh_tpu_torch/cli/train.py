@@ -38,7 +38,8 @@ from deepwmh_tpu_torch.core.manifests import check_dataset, load_csv_simple, wri
 from deepwmh_tpu_torch.device import resolve_device
 
 MESH_NOT_PORTED = ("--mesh: multi-device registration and training are not ported to the "
-                   "GPU package yet (ROADMAP A13); run without --mesh (-g i picks a card).")
+                   "GPU package yet (ROADMAP A13, second half); run without --mesh "
+                   "(-g i picks a card).")
 
 
 def n4_preprocess_cases(cases, flairs, out_folder, skip_bfc=False, device=None,

@@ -83,7 +83,7 @@ def run_e2e_accuracy(
     Dice), "stage_stats" (run_train's seconds per step and stage)}; the
     held-out entries only with run_stages 'full'. Resumes from
     the artifacts under ``work_dir``. ``device``: CUDA unless the CPU is
-    asked for; ``mesh`` is not ported."""
+    asked for; ``mesh`` is not ported (ROADMAP A13, second half)."""
     from deepwmh_tpu_torch.cli.predict import run_predict
     from deepwmh_tpu_torch.cli.train import run_train
     from deepwmh_tpu_torch.unet.release import install_model

@@ -31,7 +31,7 @@ Usage:
       [--limit-reference N] [--limit-training N] [-g i | --device cpu]
 
 CUDA unless the CPU is asked for. ``--mesh`` (multi-device) is not ported
-and exits naming ROADMAP A13.
+and exits naming ROADMAP A13, second half.
 """
 
 from __future__ import annotations

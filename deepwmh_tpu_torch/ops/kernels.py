@@ -98,9 +98,16 @@ class CudaKernel:
         self.launches = 0
         self._lib = None
         self._lock = threading.Lock()
+        self._count_lock = threading.Lock()
 
     def _bind(self, lib) -> None:
         raise NotImplementedError
+
+    def _count(self) -> None:
+        """One more launch; callers on several threads (stage-1 over a mesh
+        of cards runs a thread a card) lose no count."""
+        with self._count_lock:
+            self.launches += 1
 
     def lib(self):
         with self._lock:
@@ -300,7 +307,7 @@ class InstanceNormStats(_ChannelsLastKernel):
                          per_group, 1.0 / M, stream)
         if err:
             raise RuntimeError("instance_norm_stats: launch failed, CUDA error %d" % err)
-        self.launches += 1
+        self._count()
         return stats.unbind(0)
 
 
@@ -375,7 +382,7 @@ class InstanceNormAct(_ChannelsLastKernel):
                          C, rows, G, slope, _current_stream(dev))
         if err:
             raise RuntimeError("instance_norm_act: launch failed, CUDA error %d" % err)
-        self.launches += 1
+        self._count()
         return out
 
 
@@ -572,7 +579,7 @@ class Median3(CudaKernel):
                          W, _current_stream(vol.device))
         if err:
             raise RuntimeError("median3: launch failed, CUDA error %d" % err)
-        self.launches += 1
+        self._count()
         return out
 
 

@@ -95,35 +95,57 @@ def _fixed(x):
     return torch.round(x.double() * FIXED_ONE).long()
 
 
-def _triangular_histogram(lo, w_lo, w_hi, nbins: int):
-    """f32 [nbins]: ``w_lo`` added into bins ``lo`` and ``w_hi`` into
-    ``lo + 1``, summed in fixed point (the same bits in any order)."""
+def _fixed_histogram(lo, w_lo, w_hi, nbins: int):
+    """int64 [nbins + 1]: ``w_lo`` added into bins ``lo`` and ``w_hi`` into
+    ``lo + 1`` in fixed point (the same sum in any order, so the parts of
+    a sharded volume add up to the whole's bits)."""
     hist = torch.zeros(nbins + 1, dtype=torch.int64, device=lo.device)
-    hist.index_add_(0, lo, _fixed(w_lo)).index_add_(0, lo + 1, _fixed(w_hi))
+    return hist.index_add_(0, lo, _fixed(w_lo)).index_add_(0, lo + 1, _fixed(w_hi))
+
+
+def _from_fixed(hist, nbins: int):
     return (hist[:nbins].double() / FIXED_ONE).float()
 
 
-def _sharpen(v, mask, pinv, nbins=NBINS, fwhm=FWHM, noise=WIENER_NOISE):
-    """Histogram sharpening: E[u|v] per voxel (the expected bias-free log
-    intensity). ``pinv``: ``_cheb_pinv(nbins, K)`` on v's device."""
-    dev = v.device
-    sel = mask > 0.5
-    vmin = torch.where(sel, v, torch.inf).min()
-    vmax = torch.where(sel, v, -torch.inf).max()
-    vmax = torch.where(vmax > vmin, vmax, vmin + 1.0)
-    width = (vmax - vmin) / (nbins - 1)
+def _triangular_histogram(lo, w_lo, w_hi, nbins: int):
+    """f32 [nbins]: ``w_lo`` added into bins ``lo`` and ``w_hi`` into
+    ``lo + 1``, summed in fixed point (the same bits in any order)."""
+    return _from_fixed(_fixed_histogram(lo, w_lo, w_hi, nbins), nbins)
 
+
+def _intensity_range(v, mask):
+    """(vmin, vmax) of ``v`` where mask > 0.5; inf / -inf where none is."""
+    sel = mask > 0.5
+    return torch.where(sel, v, torch.inf).min(), torch.where(sel, v, -torch.inf).max()
+
+
+def _bin_width(vmin, vmax, nbins: int):
+    """The bin width over [vmin, vmax]; a constant image gets a range of one."""
+    vmax = torch.where(vmax > vmin, vmax, vmin + 1.0)
+    return (vmax - vmin) / (nbins - 1)
+
+
+def _bin_positions(v, vmin, width, nbins: int):
+    """Every voxel's bin position, clamped to [0, nbins - 1]."""
     pos = (v - vmin) / torch.clamp(width, min=1e-30)
-    pos = pos.clamp(0.0, float(nbins - 1))
-    # quarter sample: every other D row and H column, all of W
+    return pos.clamp(0.0, float(nbins - 1))
+
+
+def _histogram_sample(pos, mask):
+    """The quarter sample (every other D row and H column, all of W) as
+    (lower bin, its weight, the upper bin's weight)."""
     pos_s = pos[::2, ::2, :].reshape(-1)
     w = mask[::2, ::2, :].reshape(-1)
     lo = torch.floor(pos_s)
     frac = pos_s - lo
-    lo = lo.long()
-    hist = _triangular_histogram(lo, w * (1.0 - frac), w * frac, nbins)
+    return lo.long(), w * (1.0 - frac), w * frac
 
-    # Wiener deconvolution with a Gaussian of the given FWHM (bin units)
+
+def _expectation_map(hist, vmin, width, pinv, nbins=NBINS, fwhm=FWHM, noise=WIENER_NOISE):
+    """Chebyshev coefficients [K + 1] of E[u|v] over the bins: the histogram
+    sharpened by Wiener deconvolution with a Gaussian of the given FWHM
+    (bin units), then reconvolved."""
+    dev = hist.device
     pad_n = nbins * 2
     two = torch.tensor(2.0, dtype=torch.float32, device=dev)
     sigma_i = fwhm / (2.0 * torch.sqrt(2.0 * torch.log(two)))
@@ -143,15 +165,27 @@ def _sharpen(v, mask, pinv, nbins=NBINS, fwhm=FWHM, noise=WIENER_NOISE):
     # identity map where the density vanishes, blended smoothly
     blend = torch.clamp(den / (1e-4 * den.max() + 1e-30), 0.0, 1.0)
     e_u = blend * e_u + (1.0 - blend) * u_bins
+    return pinv @ e_u
 
-    # Clenshaw evaluation of the Chebyshev fit of the map at every voxel
-    coef = pinv @ e_u
+
+def _clenshaw(pos, coef, nbins: int = NBINS):
+    """The Chebyshev fit ``coef`` evaluated at every voxel's bin position."""
     xs = pos / (nbins - 1) * 2.0 - 1.0
     b1 = torch.zeros_like(xs)
     b2 = torch.zeros_like(xs)
-    for k in range(pinv.shape[0] - 1, 0, -1):
+    for k in range(coef.shape[0] - 1, 0, -1):
         b1, b2 = coef[k] + 2.0 * xs * b1 - b2, b1
     return coef[0] + xs * b1 - b2
+
+
+def _sharpen(v, mask, pinv, nbins=NBINS, fwhm=FWHM, noise=WIENER_NOISE):
+    """Histogram sharpening: E[u|v] per voxel (the expected bias-free log
+    intensity). ``pinv``: ``_cheb_pinv(nbins, K)`` on v's device."""
+    vmin, vmax = _intensity_range(v, mask)
+    width = _bin_width(vmin, vmax, nbins)
+    pos = _bin_positions(v, vmin, width, nbins)
+    hist = _triangular_histogram(*_histogram_sample(pos, mask), nbins)
+    return _clenshaw(pos, _expectation_map(hist, vmin, width, pinv, nbins, fwhm, noise), nbins)
 
 
 def _n4_core(v0, mask, levels: int, iters_per_level: int, base_control: int):
@@ -213,21 +247,31 @@ def n4_bias_correction(
     return corrected
 
 
-# volumes at or above this many voxels take the JAX package's slab-sharded
-# N4 when more than one device is visible; that route is not ported
+# volumes at or above this many voxels take the slab-sharded N4
+# (parallel/spatial.py HaloShardedOps) when more than one card is visible:
+# the full-resolution arrays then never sit whole on one card
 N4_SHARD_MIN_VOXELS = 64_000_000
 
 
+def n4_would_shard(shape, pinned: bool = False) -> bool:
+    """True when ``n4_bias_correction_auto`` would take the slab-sharded
+    route for ``shape``: at least N4_SHARD_MIN_VOXELS voxels, more than one
+    CUDA device visible, and the run not ``pinned`` to one device (``-g
+    i`` / ``--device``: a pinned process must not spread over the other
+    processes' cards). The predict path's fused-case gate calls this same
+    predicate, so a fresh and a resumed case give the same N4 output."""
+    vox = math.prod(int(s) for s in shape)
+    return (vox >= N4_SHARD_MIN_VOXELS and not pinned and torch.cuda.is_available()
+            and torch.cuda.device_count() > 1)
+
+
 def n4_bias_correction_auto(data, pinned: bool = False, **kwargs):
-    """``n4_bias_correction`` as the training CLI calls it. On one card, or
-    with the run ``pinned`` to a card (``-g i`` / ``--device``), it is
-    ``n4_bias_correction``; a volume of N4_SHARD_MIN_VOXELS or more with
-    several cards visible would take the sharded route, which is not ported
-    and raises."""
-    vox = math.prod(int(s) for s in data.shape)
-    if (vox >= N4_SHARD_MIN_VOXELS and not pinned and torch.cuda.is_available()
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "N4 sharded over several cards (volumes of >= %d voxels) is not ported "
-            "yet (ROADMAP A13); pin the run to one card (-g i)" % N4_SHARD_MIN_VOXELS)
+    """``n4_bias_correction``, or for the volumes ``n4_would_shard`` picks,
+    the same correction slab-sharded over every visible card
+    (``HaloShardedOps(make_mesh())``)."""
+    if n4_would_shard(data.shape, pinned):
+        from deepwmh_tpu_torch.parallel.mesh import make_mesh
+        from deepwmh_tpu_torch.parallel.spatial import HaloShardedOps
+
+        return HaloShardedOps(make_mesh()).n4_bias_correction(data, **kwargs)
     return n4_bias_correction(data, **kwargs)

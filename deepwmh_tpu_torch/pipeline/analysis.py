@@ -13,7 +13,9 @@ Per case, on one device:
 ``LesionAnalyzer`` handles the NIfTI I/O, the idempotent artifacts and the
 per-case summary, with the JAX package's output contract (anomaly_score /
 valid_mask / normalized_input / averaged_label / preprocessed_image /
-segmentation[_pp] / summary.json + segmentation.txt).
+segmentation[_pp] / summary.json + segmentation.txt). Over a device mesh
+(``analyze_and_do_segmentation(mesh=)``) the cases are dealt over the
+shards, each analysed whole on its shard's device.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from deepwmh_tpu_torch.ops.histogram import (
 )
 from deepwmh_tpu_torch.ops.nll import nll, nll_from_moments
 from deepwmh_tpu_torch.ops.stats import group_mean, z_score
+from deepwmh_tpu_torch.parallel.mesh import Mesh
 from deepwmh_tpu_torch.utils.logging import SimpleTxtLog, TimeStamps
 from deepwmh_tpu_torch.utils.parallel import run_parallel
 
@@ -227,13 +230,15 @@ class LesionAnalyzer:
         return x_raw, hdr, voxel_size, refs, l1, l2
 
     def analyze_case(self, case: str, intensity_prior="+", apply_otsu=True,
-                     loaded=None, debug=False, stage_s=None):
-        """Returns (AnalysisResult, header, voxel size)."""
+                     loaded=None, debug=False, stage_s=None, device=None):
+        """Returns (AnalysisResult, header, voxel size). ``device``: where
+        the case runs (the analyzer's device by default; a mesh shard's)."""
         x_raw, hdr, voxel_size, refs, l1, l2 = loaded or self._load_case(case)
         num_classes = int(np.max(l2.astype(np.int64))) + 1
+        device = self.device if device is None else device
 
         def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.device)
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
 
         out = nll_analysis_core(
             dev(x_raw), dev(refs), dev(l1), dev(l2),
@@ -297,19 +302,78 @@ class LesionAnalyzer:
         # summary.json marks the case complete, so it is written last
         atomic_write_json(summary, join_path(case_dir, "summary.json"))
 
+    def _auto_batch_cases(self, shape, K, n_devices: int = 1) -> int:
+        """Cases a chunk: the core holds ~5 K-stacked f32 volumes a case,
+        budgeted at ~6 GB a device; with a mesh a multiple of the device
+        count, at most 4 rounds a device (the JAX package's sizing)."""
+        vox = int(np.prod(shape))
+        per_case = (5 * K + 10) * 4 * vox
+        per_device = int(max(1, 6_000_000_000 // max(per_case, 1)))
+        if n_devices <= 1:
+            return min(8, per_device)
+        return min(4 * n_devices, max(1, per_device) * n_devices)
+
+    def _mesh_chunks(self, todo, mesh, batch_cases, debug):
+        """Chunks of same-geometry cases (shape, spacing, K), sized by
+        ``_auto_batch_cases`` for 'auto'."""
+        groups = {}
+        for case in todo:
+            info = self.data_dict[case]
+            shape = tuple(int(s) for s in nifti.get_nifti_header(info["x"]).shape[:3])
+            voxel = tuple(round(v, 4) for v in nifti.get_nifti_pixdim(info["x"]))
+            groups.setdefault((shape, voxel, len(info["r"])), []).append(case)
+        chunks = []
+        for (shape, _voxel, K), cases in groups.items():
+            if batch_cases == "auto":
+                B = self._auto_batch_cases(shape, K, mesh.size)
+            else:
+                B = max(int(batch_cases), 1)
+            if debug:
+                B = 1  # debug intermediates are a per-case artifact set
+            chunks += [cases[i:i + B] for i in range(0, len(cases), B)]
+        return chunks
+
+    def _analyze_chunk(self, chunk, loaded, devices, intensity_prior, debug):
+        """Case i of the chunk on ``devices[i % len(devices)]``; the cases of
+        one device in order, each distinct card on a thread of its own.
+        Returns [(AnalysisResult, header)] in chunk order."""
+        by_device = {}
+        for i in range(len(chunk)):
+            by_device.setdefault(devices[i % len(devices)], []).append(i)
+
+        def run(dev, idxs):
+            out = []
+            for i in idxs:
+                self.log("analyzing case %s" % chunk[i])
+                result, hdr, _ = self.analyze_case(chunk[i], intensity_prior=intensity_prior,
+                                                   loaded=loaded[i], debug=debug, device=dev)
+                out.append((i, (result, hdr)))
+            return out
+
+        if len(by_device) == 1:
+            done = run(*next(iter(by_device.items())))
+        else:
+            with ThreadPoolExecutor(max_workers=len(by_device)) as pool:
+                futures = [pool.submit(run, dev, idxs) for dev, idxs in by_device.items()]
+                done = [r for f in futures for r in f.result()]
+        return [res for _, res in sorted(done, key=lambda r: r[0])]
+
     def analyze_and_do_segmentation(self, intensity_prior="+", do_postprocessing=True,
                                     debug=False, batch_cases="auto", mesh=None):
         """Analyse every case without a summary.json, then segment every
         case whose segmentation is missing.
 
-        ``batch_cases`` is accepted for the JAX package's signature; there
-        its batches exist to shard cases over a device mesh, and on one card
-        the cases run one after another (the next case's files are read
-        while the current one computes), giving the per-case outputs.
-        ``mesh`` (multi-GPU stage-1) is not ported and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "stage-1 over a device mesh is not ported; run without mesh on one card")
+        Without ``mesh`` the cases run one after another on the analyzer's
+        device (the next case's files are read while the current one
+        computes). With ``mesh`` (a ``parallel.mesh.Mesh``: stage-1 over a
+        mesh) same-geometry cases form chunks of ``batch_cases`` ('auto':
+        ``_auto_batch_cases(shape, K, mesh.size)``), whose cases are dealt
+        over the shards in order, one case a shard at a time. Either way
+        each case gives the one-by-one run's artifacts: the port runs no
+        vmapped batch of cases."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a deepwmh_tpu_torch.parallel.mesh.Mesh, got %r"
+                            % (mesh,))
         if not (batch_cases == "auto" or isinstance(batch_cases, int)):
             raise ValueError("batch_cases must be 'auto' or an int, got %r" % (batch_cases,))
 
@@ -322,16 +386,23 @@ class LesionAnalyzer:
             else:
                 todo.append(case)
 
+        if mesh is None:
+            chunks, devices = [[case] for case in todo], [self.device]
+        else:
+            chunks, devices = self._mesh_chunks(todo, mesh, batch_cases, debug), mesh.devices
+
+        def load_chunk(cases):
+            return [self._load_case(c) for c in cases]
+
         with ThreadPoolExecutor(max_workers=1) as pool:
-            future = pool.submit(self._load_case, todo[0]) if todo else None
-            for i, case in enumerate(todo):
+            future = pool.submit(load_chunk, chunks[0]) if chunks else None
+            for i, chunk in enumerate(chunks):
                 loaded = future.result()
-                if i + 1 < len(todo):  # read the next case while this one runs
-                    future = pool.submit(self._load_case, todo[i + 1])
-                self.log("analyzing case %s" % case)
-                result, hdr, _ = self.analyze_case(case, intensity_prior=intensity_prior,
-                                                   loaded=loaded, debug=debug)
-                self._save_case_artifacts(case, result, hdr, intensity_prior)
+                if i + 1 < len(chunks):  # read the next chunk while this one runs
+                    future = pool.submit(load_chunk, chunks[i + 1])
+                results = self._analyze_chunk(chunk, loaded, devices, intensity_prior, debug)
+                for case, (result, hdr) in zip(chunk, results):
+                    self._save_case_artifacts(case, result, hdr, intensity_prior)
 
         # segmentation for EVERY case, including those whose analysis was
         # skipped: a deleted segmentation is recomputed from the artifacts

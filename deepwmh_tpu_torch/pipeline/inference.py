@@ -4,10 +4,12 @@ semantics of ``deepwmh_tpu.pipeline.inference``.
 
 Shared by the predict CLI and the serving loop (``pipeline/serve.py``). A
 fresh case (no artifacts yet) runs the whole device pipeline in one call
-(``SlidingWindowPredictor.predict_case_full``); a burst of fresh
-same-geometry cases runs it once over the batch (``predict_batch_cases``).
-On one card every fresh case takes that path: the JAX package diverts only
-volumes its multi-device N4 would shard. A partially computed case runs
+(``SlidingWindowPredictor.predict_case_full``, or the mesh-sharded
+predictor's); a burst of fresh same-geometry cases runs it once over the
+batch (``predict_batch_cases``). A volume that N4 would spread over the
+cards (``ops/n4.n4_would_shard``: >= 64M voxels, several cards, the run not
+pinned) takes the staged path instead, with the sharded N4 first, as the
+JAX package's ``_can_fuse`` gate routes it. A partially computed case runs
 stage by stage, probing each artifact with ``try_load_nifti``, so a rerun
 resumes where it stopped.
 """
@@ -21,7 +23,7 @@ from deepwmh_tpu_torch.core import nifti
 from deepwmh_tpu_torch.core.artifacts import join_path, mkdir
 from deepwmh_tpu_torch.ops.brain import brain_extract
 from deepwmh_tpu_torch.ops.components import remove_3mm_sparks
-from deepwmh_tpu_torch.ops.n4 import n4_bias_correction
+from deepwmh_tpu_torch.ops.n4 import n4_bias_correction_auto, n4_would_shard
 
 
 def make_output_folders(output_folder):
@@ -60,6 +62,13 @@ def _render_preview(folders, case, raw_data, fov_data, image_path=None, seg_path
         print("warning: preview rendering failed for %s: %r" % (case, e), flush=True)
 
 
+def _can_fuse(predictor, shape, skip_bfc) -> bool:
+    """The fused case program runs N4 on the predictor's device; a volume
+    the auto router would shard keeps the staged path. The router's own
+    predicate, so a fresh and a resumed case give the same N4 output."""
+    return skip_bfc or not n4_would_shard(shape, predictor.pinned)
+
+
 def _case_paths(folders, case):
     """(pre, raw seg, 3 mm seg, FOV seg) artifact paths of ``case``."""
     return (join_path(folders["images"], "%s_0000.nii.gz" % case),
@@ -96,7 +105,8 @@ def predict_batch_cases(predictor, cases, folders, skip_bfc: bool = False,
         if case not in preloads:
             preloads[case] = nifti.load_nifti(image_path)
         data, hdr = preloads[case]
-        if any(nifti.try_load_nifti(p) for p in _case_paths(folders, case)):
+        if (any(nifti.try_load_nifti(p) for p in _case_paths(folders, case))
+                or not _can_fuse(predictor, data.shape, skip_bfc)):
             solo.append((case, image_path))
         else:
             batch.append((case, image_path, data, hdr))
@@ -147,19 +157,27 @@ def predict_one_case(predictor, case, image_path, folders, skip_bfc: bool = Fals
 
     raw_data = None
     fov_data = None
-    if not any(nifti.try_load_nifti(p) for p in (pre_path, raw_seg, seg_3mm, seg_fov)):
-        raw_data, hdr = preloaded if preloaded is not None else nifti.load_nifti(image_path)
+    # (data, hdr) of image_path, reused by whichever path runs
+    loaded = preloaded
+    fused = not any(nifti.try_load_nifti(p) for p in (pre_path, raw_seg, seg_3mm, seg_fov))
+    if fused:
+        if loaded is None:
+            loaded = nifti.load_nifti(image_path)
+        raw_data, hdr = loaded
+        fused = _can_fuse(predictor, raw_data.shape, skip_bfc)
+    if fused:
         spacing = [float(abs(z)) for z in hdr.zooms[:3]]
         outs = predictor.predict_case_full(raw_data, spacing, apply_n4=not skip_bfc)
         fov_data = _save_full(outs, hdr, (pre_path, raw_seg, seg_3mm, seg_fov))
     else:
         # stage-by-stage path: resume granularity = one artifact
         if not nifti.try_load_nifti(pre_path):
-            raw_data, hdr = preloaded if preloaded is not None else nifti.load_nifti(image_path)
+            raw_data, hdr = loaded if loaded is not None else nifti.load_nifti(image_path)
             if skip_bfc:
                 nifti.save_nifti(raw_data, hdr, pre_path)
             else:
-                corrected = n4_bias_correction(torch.from_numpy(np.array(raw_data)).to(dev))
+                corrected = n4_bias_correction_auto(
+                    torch.from_numpy(np.array(raw_data)).to(dev), pinned=predictor.pinned)
                 nifti.save_nifti(_numpy(corrected), hdr, pre_path)
 
         if not nifti.try_load_nifti(raw_seg):

@@ -58,7 +58,7 @@ from deepwmh_tpu_torch.unet.train import TrainConfig, Trainer
 from deepwmh_tpu_torch.utils.logging import SimpleTxtLog
 
 MESH_NOT_PORTED = ("pipeline training over a device mesh is not ported to the GPU "
-                   "package yet (ROADMAP A13); run on one card")
+                   "package yet (ROADMAP A13, second half); run on one card")
 
 
 @contextlib.contextmanager

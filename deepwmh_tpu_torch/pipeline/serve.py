@@ -1,5 +1,5 @@
 """Spool-directory inference serving: load the model once, stream volumes
-(the port of ``deepwmh_tpu.pipeline.serve``, one card).
+(the port of ``deepwmh_tpu.pipeline.serve``).
 
   spool/<case>.nii.gz          a request (any NIfTI; case = file stem)
   spool/.work/<server_id>/     claimed requests (atomic os.rename claim)
@@ -14,7 +14,9 @@ spool on a shared filesystem: the rename claim is atomic on POSIX, so each
 request runs exactly once. The claim, provenance, quarantine and recovery
 logic is the JAX package's, line for line; the predictor is the port's
 ``SlidingWindowPredictor`` on ``device`` (CUDA unless the CPU is asked
-for). No ``mesh`` argument: multi-GPU serving is not ported.
+for), or with ``mesh`` the ``ShardedSlidingWindowPredictor``: one server
+spreads each volume's sweep over the mesh, and a burst runs one case a
+shard.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from deepwmh_tpu_torch.pipeline.inference import (
     predict_batch_cases,
     predict_one_case,
 )
+from deepwmh_tpu_torch.parallel.infer_sharded import ShardedSlidingWindowPredictor
 from deepwmh_tpu_torch.unet.infer import SlidingWindowPredictor
 from deepwmh_tpu_torch.unet.release import load_released_model, resolve_model_dir
 
@@ -66,6 +69,7 @@ class SpoolServer:
         task_name: str | None = None,
         batch_max: int | None = None,
         device=None,
+        mesh=None,
     ):
         self.spool_dir = mkdir(spool_dir)
         self.folders = make_output_folders(output_folder)
@@ -85,15 +89,27 @@ class SpoolServer:
         # same -m semantics as DeepWMH_predict: a root holding one task
         # folder resolves to it; task_name picks one of several
         model_dir = resolve_model_dir(model_dir, task_name)
-        model, plan = load_released_model(model_dir, checkpoint_name, device=device)
-        self.predictor = SlidingWindowPredictor(model, plan, tta=tta, device=device)
+        if mesh is not None:
+            model, plan = load_released_model(
+                model_dir, checkpoint_name, device=mesh.devices[0] if device is None else device)
+            self.predictor = ShardedSlidingWindowPredictor(model, plan, mesh, tta=tta,
+                                                           device=device)
+        else:
+            model, plan = load_released_model(model_dir, checkpoint_name, device=device)
+            self.predictor = SlidingWindowPredictor(model, plan, tta=tta, device=device)
 
         # burst batching: same-geometry requests that are claimable at the
         # same moment run as ONE batched sweep (bounded latency: only what
-        # is already pending is batched — a lone request never waits). On
-        # one device the default is off (1), the JAX package's measured
-        # policy; an explicit batch_max turns it on.
-        self.batch_max = 1 if batch_max is None else max(int(batch_max), 1)
+        # is already pending is batched — a lone request never waits). The
+        # JAX package's measured policy: off (1) on one device unless
+        # batch_max is set; with a mesh one case a shard, capped at the
+        # mesh size (a lone request still takes the sharded sweep).
+        if mesh is None:
+            self.batch_max = 1 if batch_max is None else max(int(batch_max), 1)
+        elif batch_max is None:
+            self.batch_max = mesh.size
+        else:
+            self.batch_max = max(min(int(batch_max), mesh.size), 1)
 
         self._t0 = time.time()
         self.served = 0

@@ -47,7 +47,7 @@ from deepwmh_tpu_torch.registration.svf import (
 )
 
 MESH_NOT_PORTED = ("multi-device pair sharding (mesh) is not ported to the GPU package "
-                   "yet (ROADMAP A13); run without it")
+                   "yet (ROADMAP A13, second half); run without it")
 
 
 def pair_name(source_case: str, target_case: str) -> str:

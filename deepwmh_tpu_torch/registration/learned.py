@@ -37,7 +37,7 @@ from deepwmh_tpu_torch.unet.plan import Plan
 from deepwmh_tpu_torch.utils.adam import Adam
 
 MESH_NOT_PORTED = ("multi-device training of the registration network (mesh) is not "
-                   "ported to the GPU package yet (ROADMAP A13)")
+                   "ported to the GPU package yet (ROADMAP A13, second half)")
 
 
 @dataclass

@@ -92,7 +92,8 @@ def _disp_to_target_grid(disp_T, M_t, sp_T, sp_t, t_shape, device=None) -> np.nd
 
 class LearnedGroupRegistration:
     """Amortised all-pairs registration: one network forward per pair.
-    ``device``: CUDA unless the CPU is asked for; ``mesh`` is not ported."""
+    ``device``: CUDA unless the CPU is asked for; ``mesh`` is not ported
+    (ROADMAP A13, second half)."""
 
     def __init__(self, sources, targets, output_folder, reg_cfg: LearnedRegConfig = None,
                  template_cfg: AffineConfig = None, template_spacing=(2.0, 2.0, 2.0),

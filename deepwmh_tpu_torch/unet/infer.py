@@ -65,14 +65,17 @@ def compute_steps(image_size, patch_size, step_fraction: float = 0.5):
     return steps
 
 
-def patch_positions(image_size, patch_size, step_fraction: float = 0.5):
+def patch_positions(image_size, patch_size, step_fraction: float = 0.5,
+                    bucket_multiple: int = 1):
     """All patch start positions (int32 [P, 3]) and their weights (f32
-    [P]), padded to a POS_BUCKET multiple by repeating the last position
-    with weight 0, as the JAX sweep buckets them."""
+    [P]), padded to a POS_BUCKET * bucket_multiple multiple by repeating
+    the last position with weight 0, as the JAX sweep buckets them (a
+    mesh of n shards passes n, so each shard takes an equal block)."""
     steps = compute_steps(image_size, patch_size, step_fraction)
     pos = np.array(list(itertools.product(*steps)), dtype=np.int32)
     n_real = len(pos)
-    bucket = int(math.ceil(n_real / POS_BUCKET) * POS_BUCKET)
+    unit = POS_BUCKET * bucket_multiple
+    bucket = int(math.ceil(n_real / unit) * unit)
     if bucket > n_real:
         pos = np.concatenate([pos, np.repeat(pos[-1:], bucket - n_real, axis=0)])
     w = np.zeros(bucket, np.float32)
@@ -162,6 +165,27 @@ def fullvol_shape(shape, plan):
     return tuple(int(-(-int(s) // st) * st) for s, st in zip(shape, strides))
 
 
+def sweep(model, vols, plan, mode: str, flips, gauss, step_fraction: float = 0.5):
+    """Softmax [B,D,H,W,C] of preprocessed ``vols`` [B,D,H,W] (unpadded) on
+    their device: whole-volume TTA over the batch at once, or the patch
+    sweep case by case (``gauss`` on the same device)."""
+    res_shape = tuple(vols.shape[1:])
+    C = int(plan.num_classes)
+    if use_fullvol(mode, res_shape, plan):
+        probs = fullvol_tta(model, pad_to(vols, fullvol_shape(res_shape, plan)), C, flips)
+    else:
+        patch_size = tuple(int(p) for p in plan.patch_size)
+        target = padded_shape(res_shape, patch_size)
+        pos, pos_w = patch_positions(target, patch_size, step_fraction)
+        out = []
+        for vol in vols:
+            acc, wt = accumulate_patches(model, pad_to(vol, target), pos, pos_w, gauss,
+                                         patch_size, C, flips)
+            out.append(acc / torch.clamp(wt, min=1e-8)[..., None])
+        probs = torch.stack(out)
+    return probs[:, : res_shape[0], : res_shape[1], : res_shape[2]]
+
+
 def use_fullvol(mode: str, res_shape, plan) -> bool:
     """'patch' forces the sweep; 'fullvol' forces whole-volume (raising
     above FULLVOL_MAX_VOXELS); 'auto' picks whole-volume when it fits."""
@@ -193,6 +217,9 @@ class SlidingWindowPredictor:
                 "case inference is binary (background+lesion); plan has "
                 "num_classes=%d" % plan.num_classes)
         self.device = resolve_device(device)
+        # a run pinned to one device (-g i / --device) never spreads N4
+        # over the other cards (ops/n4.n4_would_shard)
+        self.pinned = device is not None
         self.model = model.to(self.device, memory_format=torch.channels_last_3d).eval()
         self.plan = plan
         self.tta = tta
@@ -210,24 +237,12 @@ class SlidingWindowPredictor:
         return data.to(self.device, torch.float32)
 
     def _sweep(self, vols):
-        """Softmax [B,D,H,W,C] of preprocessed ``vols`` [B,D,H,W] (unpadded):
-        whole-volume TTA over the batch at once, or the patch sweep case by
-        case."""
-        res_shape = tuple(vols.shape[1:])
-        C = int(self.plan.num_classes)
-        if use_fullvol(self.mode, res_shape, self.plan):
-            padded = pad_to(vols, fullvol_shape(res_shape, self.plan))
-            probs = fullvol_tta(self.model, padded, C, self._flips())
-        else:
-            target = padded_shape(res_shape, self.patch_size)
-            pos, pos_w = patch_positions(target, self.patch_size, self.step_fraction)
-            out = []
-            for vol in vols:
-                acc, wt = accumulate_patches(self.model, pad_to(vol, target), pos, pos_w,
-                                             self.gauss, self.patch_size, C, self._flips())
-                out.append(acc / torch.clamp(wt, min=1e-8)[..., None])
-            probs = torch.stack(out)
-        return probs[:, : res_shape[0], : res_shape[1], : res_shape[2]]
+        """Softmax [B,D,H,W,C] of preprocessed ``vols`` [B,D,H,W] (unpadded).
+        The one override point of the sweep: everything around it
+        (predict_volume, predict_case, predict_case_full[_batch]) is shared
+        with the mesh-sharded predictor (``parallel/infer_sharded.py``)."""
+        return sweep(self.model, vols, self.plan, self.mode, self._flips(), self.gauss,
+                     self.step_fraction)
 
     @torch.inference_mode()
     def predict_volume(self, volume):

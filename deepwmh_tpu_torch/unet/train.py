@@ -19,7 +19,7 @@ the JAX package's layout, the optimizer state as flax stores optax's
 chain, so either package resumes the other's model_latest. The model
 trains with ``fused_norm`` off (K1's kernels have no backward; the JAX
 trainer keeps flax GroupNorm for the same reason) and remat on stages 0-1.
-No mesh: multi-GPU training is not ported.
+No mesh: multi-GPU training is not ported (ROADMAP A13, second half).
 """
 
 from __future__ import annotations

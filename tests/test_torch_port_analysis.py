@@ -655,7 +655,8 @@ def test_lesion_analyzer_refuses_cpu_fallback_and_mesh(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         analysis.LesionAnalyzer(str(tmp_path / "a"))
     port = analysis.LesionAnalyzer(str(tmp_path / "b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # stage-1 over a mesh is ported: what is not a Mesh is refused
+    with pytest.raises(TypeError, match="Mesh"):
         port.analyze_and_do_segmentation(mesh=object())
     with pytest.raises(ValueError, match="batch_cases"):
         port.analyze_and_do_segmentation(batch_cases="two")

@@ -5,9 +5,11 @@ and the 3 mm median on the card against the CPU, a model on K1 refusing
 autograd, the trainer's model launching no K1, the serving burst
 against one-case runs, K1 at the learned registration network's shapes
 (C = 8, 16, 32), registration's field gather on the card against the
-CPU, a tiny ``run_train`` on the card launching K1 and K2, and the DICOM
+CPU, a tiny ``run_train`` on the card launching K1 and K2, the DICOM
 import's native host library built on the card's machine and equal to its
-Python versions. Every test here needs a card and skips without one; this
+Python versions, and an 8-shard mesh on one card (the halo-sharded median
+and the flip-sharded sweep bit for bit against the unsharded ones). Every
+test here needs a card and skips without one; this
 file imports no JAX, so that it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
@@ -263,6 +265,45 @@ def test_predict_case_full_batch_equals_one_case_runs(cuda):
             assert (batch[k][i] == solo[k]).float().mean() > 0.999, (i, k)
         assert float((batch[4][i] - solo[4]).abs().max()) < 5e-3
         torch.testing.assert_close(batch[0][i], solo[0], rtol=1e-3, atol=1e-3)
+
+
+def test_mesh_on_one_card_median_is_k2_bit_for_bit(cuda):
+    """An 8-shard mesh naming this card eight times: the halo-sharded median
+    (K2 once a slab, halos through the mesh's exchange) equals K2 on the
+    whole volume, depth not a multiple of 8 included."""
+    from deepwmh_tpu_torch.parallel.mesh import Mesh
+    from deepwmh_tpu_torch.parallel.spatial import HaloShardedOps
+
+    ops = HaloShardedOps(Mesh([cuda] * 8))
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for shape in ((64, 40, 36), (61, 33, 29)):
+        vol = torch.randn(shape, generator=g, device=cuda)
+        before = kernels.median3.launches
+        got = ops.median_filter(vol, 3)
+        torch.cuda.synchronize()
+        assert kernels.median3.launches - before == 8
+        assert torch.equal(got, kernels.median3(vol))
+
+
+def test_mesh_on_one_card_fg_is_unsharded_bit_for_bit(cuda):
+    """The 8 flips one a shard: the psum adds in the unsharded sweep's order,
+    so the fg probability has its bits; K1's two kernels run in every
+    shard's forward (one a block and flip)."""
+    from deepwmh_tpu_torch.parallel.infer_sharded import ShardedSlidingWindowPredictor
+    from deepwmh_tpu_torch.parallel.mesh import Mesh
+    from deepwmh_tpu_torch.unet.infer import ALL_FLIPS, SlidingWindowPredictor
+
+    plan = _tiny_plan()
+    model = init_weights(UNet3D(plan), torch.Generator().manual_seed(6))
+    single = SlidingWindowPredictor(model, plan, mode="fullvol", device=cuda)
+    sharded = ShardedSlidingWindowPredictor(model, plan, Mesh([cuda] * 8), tta=True,
+                                            mode="fullvol", device=cuda)
+    vol = torch.randn((32, 36, 28), generator=torch.Generator().manual_seed(7)).to(cuda)
+    before = kernels.instance_norm_stats.launches
+    got = sharded.predict_volume(vol)
+    torch.cuda.synchronize()
+    assert kernels.instance_norm_stats.launches - before == len(ALL_FLIPS) * (4 * 2 + 2)
+    assert torch.equal(got, single.predict_volume(vol))
 
 
 def _learned_stats_shapes():
