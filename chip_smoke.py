@@ -70,8 +70,8 @@ Phases, each printing JSON lines to stdout:
 17. reg_card_vs_cpu: one pair at 48x56x48, short schedule, on the card (no
    TF32) against the CPU within the one-pair bars, and the field gather;
 18. train_e2e: ``DeepWMH_train`` through ``run_train`` on a phantom cohort
-   (``eval/phantom.write_cohort``) at 64x80x64 2 mm, 3 references x 3
-   patients (9 svf pairs, auto asserted to resolve to svf), the production
+   (``eval/phantom.write_cohort``) at 64x80x64 2 mm, 3 references x 2
+   patients (6 svf pairs, auto asserted to resolve to svf), the production
    plan (patch 64x80x64, batch 2, widths 32 -> 320) cut to 4 / 6 epochs of
    10 steps: K1's and K2's launches from that run, the nine markers, the
    registration artifacts and run_registration.sh, stage-1 recall and Dice
@@ -129,12 +129,13 @@ Phases, each printing JSON lines to stdout:
 23. kernels: one line listing each kernel with its launches on its path
    (K1's statistics and apply kernels on the predict path and, as
    ``learned_launches`` / ``train_launches`` / ``convert_launches`` /
-   ``dicom_launches`` / ``mesh_launches``, on the learned registration, on
-   the train path, on the converted model's predict CLI run, on the predict
-   CLI run on the converted DICOM series and on the 8-shard mesh's
-   predict_case_full; K2 on the stage-1 path, the train path and, as
-   ``mesh_launches``, the halo-sharded median), after a line of the
-   policy's readings at the flagship shape;
+   ``dicom_launches`` / ``mesh_launches`` / ``mesh_train_launches``, on the
+   learned registration, on the train path, on the converted model's
+   predict CLI run, on the predict CLI run on the converted DICOM series,
+   on the 8-shard mesh's predict_case_full and on run_train over the
+   2-shard mesh; K2 on the stage-1 path, the train path, the halo-sharded
+   median and run_train over the mesh), after a line of the policy's
+   readings at the flagship shape;
 24. mesh (run right after serve): the device mesh's inference side on an
    8-shard mesh whose shards all name this card (every exchange through
    the mesh's collectives): ``predict_case_full`` on the main path's FLAIR
@@ -146,7 +147,23 @@ Phases, each printing JSON lines to stdout:
    < 1e-3 in the brain against unsharded N4, the same bits twice); the
    predict CLI with ``--mesh`` against ``-g 0`` (four artifacts equal);
    ``cli.serve --mesh --once`` on two requests; stage-1 over the mesh (two
-   cases) equal to the one-by-one run.
+   cases) equal to the one-by-one run;
+25. mesh_train (run after reg_card_vs_cpu): the device mesh's training side
+   on a 2-shard mesh whose shards both name this card. The flagship
+   ``Trainer`` (patch 128x160x128, batch 2, one sample a shard, bf16) for
+   three steps in turns with an unsharded one from the same weights,
+   batches and seeds: the augmented batches equal, the replicas the same
+   bits after every step, the losses, the first step's gradient cosine and
+   norm ratio, seconds a step, peak memory; then one f32 step (no TF32):
+   loss rtol 1e-5, gradient cosine > 0.9999. ``LearnedRegistration.train``
+   over the mesh at the flagship template grid (96x112x96, batch_pairs 1 ->
+   2, 10 steps) beside unsharded batch 2, its first step's loss and
+   gradient against the unsharded one at JAX's bars. ``register_pairs_mesh``
+   on group_register's two flagship pairs (iterations cut) bit-equal to
+   ``_pair_core`` one by one. ``run_train`` over the mesh on a 2 x 2
+   phantom cohort at 64x80x64 (quick registration, 1 / 1 epoch x 2 steps):
+   K1's and K2's launches, the nine markers, the release installed; then a
+   resume through the train CLI with ``--mesh`` that trains nothing.
 
 ``python3 chip_smoke.py --e2e-dice`` builds the kernels and then, instead
 of the phases, runs ``eval/e2e.run_e2e_accuracy`` at the e2e accuracy
@@ -159,7 +176,7 @@ learned gap a seed and the policy readings at that shape.
 ``python3 chip_smoke.py --convert-evaluate`` builds the kernels and runs
 only the convert_evaluate phase; ``python3 chip_smoke.py --dicom`` builds
 them and runs only dicom_predict and oasis3_prep; ``python3 chip_smoke.py
---mesh`` builds them and runs only mesh.
+--mesh`` builds them and runs only mesh and mesh_train.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``. A failed phase
 raises, and the script exits non-zero before printing it; so it does with no
@@ -2367,6 +2384,7 @@ E2E_SHAPE = (64, 80, 64)  # the phantom cohorts' shape, 2 mm
 E2E_SPACING = (2.0, 2.0, 2.0)
 # train_e2e's cut: the production plan at E2E_SHAPE, 4 / 6 epochs of 10 steps
 E2E_BUDGET = dict(stage2_epochs=4, stage3_epochs=6, batches_per_epoch=10)
+E2E_REFS, E2E_PATIENTS = 3, 2  # 6 svf pairs: auto resolves to svf; stage-1 keeps K = 3
 STAGE1_RECALL_FLOOR = 0.9  # tests/test_train_pipeline_e2e.py's floors
 STAGE1_DICE_FLOOR = 0.15
 
@@ -2550,7 +2568,7 @@ def released_model_checks(core, model_dir, pred_dir, test_case, test_flair) -> d
 
 def phase_train_e2e(kernels, work, smi, flair, pkg):
     """DeepWMH_train end to end through run_train on a phantom cohort at
-    64x80x64 2 mm (3 references x 3 patients, 9 svf pairs, the production
+    64x80x64 2 mm (3 references x 2 patients, 6 svf pairs, the production
     plan, 4 / 6 epochs of 10 steps), K1's and K2's launches from that run;
     the markers, registration artifacts, run_registration.sh, stage-1
     against the phantom's lesions, the release installed and predicted on a
@@ -2575,13 +2593,15 @@ def phase_train_e2e(kernels, work, smi, flair, pkg):
     data = os.path.join(root, "data")
     t0 = time.perf_counter()
     ref_csv, train_csv, gt_paths = write_cohort(data, shape=E2E_SHAPE, spacing=E2E_SPACING,
-                                                n_ref=3, n_train=3, seed=0, device=DEVICE)
-    test_cases, test_gt = write_test_cases(data, E2E_SHAPE, E2E_SPACING, 3, 3, 1, 0,
-                                           device=DEVICE)
+                                                n_ref=E2E_REFS, n_train=E2E_PATIENTS, seed=0,
+                                                device=DEVICE)
+    test_cases, test_gt = write_test_cases(data, E2E_SHAPE, E2E_SPACING, E2E_REFS, E2E_PATIENTS,
+                                           1, 0, device=DEVICE)
     (test_case, test_flair), = test_cases
     setup_s = time.perf_counter() - t0
-    mode = select_registration_mode(3, 3, volume_voxels=math.prod(E2E_SHAPE))
-    check(mode == "svf", "auto resolved to %s at 3 x 3 pairs of %s" % (mode, E2E_SHAPE))
+    mode = select_registration_mode(E2E_REFS, E2E_PATIENTS, volume_voxels=math.prod(E2E_SHAPE))
+    check(mode == "svf", "auto resolved to %s at %d x %d pairs of %s"
+          % (mode, E2E_REFS, E2E_PATIENTS, E2E_SHAPE))
 
     out = os.path.join(root, "out")
     budget = StageBudget(**E2E_BUDGET)
@@ -2598,7 +2618,7 @@ def phase_train_e2e(kernels, work, smi, flair, pkg):
     peak_gb = max(st.get("peak_gb", 0.0) for st in stats.values())
     for name in ("instance_norm_stats", "instance_norm_act", "median3"):
         check(launches[name] > 0, "%s was not launched on the train path" % name)
-    check(launches["median3"] == 3, "K2 launched %d times, one per case expected"
+    check(launches["median3"] == E2E_PATIENTS, "K2 launched %d times, one per case expected"
           % launches["median3"])
 
     for m in ("STAGE_1_INITIAL_SEGMENTATION", "STAGE_2-3_TRAINING_DENOISER",
@@ -2606,7 +2626,8 @@ def phase_train_e2e(kernels, work, smi, flair, pkg):
               "STAGE_3-1_DATA_SPLIT", "STAGE_3-4_TRAINING", "STAGE_3-5_FINAL_FIT",
               "PIPELINE_TRAINING_COMPLETE"):
         check(os.path.isfile(os.path.join(core, "Checkpoints", m)), "marker %s missing" % m)
-    refs, subs = ["REF%02d" % i for i in range(3)], ["SUB%02d" % i for i in range(3)]
+    refs = ["REF%02d" % i for i in range(E2E_REFS)]
+    subs = ["SUB%02d" % i for i in range(E2E_PATIENTS)]
     for r in refs:
         for t in subs:
             pair = os.path.join(out, "002_Registration", "%s_to_%s" % (r, t))
@@ -2657,16 +2678,17 @@ def phase_train_e2e(kernels, work, smi, flair, pkg):
     plan = Plan.load(os.path.join(core, "DCNN_Outputs", PipelineMultistage.STAGE2_TASK,
                                   "plan.json"))
     row = {"phase": "train_e2e", "nvidia_smi": smi, "shape": list(E2E_SHAPE),
-           "spacing": list(E2E_SPACING), "references": 3, "patients": 3,
+           "spacing": list(E2E_SPACING), "references": E2E_REFS, "patients": E2E_PATIENTS,
            "registration_mode": mode, "budget": E2E_BUDGET,
            "plan": {"patch_size": plan.patch_size, "batch_size": plan.batch_size,
                     "num_pools": plan.num_pools, "widths": features_per_stage(plan)},
            "setup_s": setup_s, "wall_s": wall, "peak_device_gb": peak_gb,
            "launches": launches,
-           "stage_s": {"n4_s_per_volume": stats["n4"]["s"] / 6,
-                       "registration_s_per_pair": stats["registration"]["s"] / 9,
+           "stage_s": {"n4_s_per_volume": stats["n4"]["s"] / (E2E_REFS + E2E_PATIENTS),
+                       "registration_s_per_pair": stats["registration"]["s"]
+                       / (E2E_REFS * E2E_PATIENTS),
                        "label_propagation_s": stats["label_propagation"]["s"],
-                       "stage1_s_per_case": stats["stage1"]["s"] / 3,
+                       "stage1_s_per_case": stats["stage1"]["s"] / E2E_PATIENTS,
                        "stage2_s_per_step": stats["2-3_training"]["s"] / s2_steps,
                        "2-4_s": stats["2-4_raw_softmax"]["s"],
                        "2-5_2-6_s": stats["2-5_masked_softmax"]["s"]
@@ -2684,6 +2706,326 @@ def phase_train_e2e(kernels, work, smi, flair, pkg):
                                  flair, pkg, os.path.join(work, "predict"))
     emit(row)
     return launches, plan
+
+
+# ---------------------------------------------------------------------- #
+# the device mesh, training side: a 2-shard mesh on one card
+# ---------------------------------------------------------------------- #
+
+MESH_TRAIN_SHARDS = 2
+MESH_TRAIN_STEPS = 3  # of the flagship dp Trainer, each beside an unsharded one
+MESH_LEARNED_STEPS = 10
+MESH_PAIR_CFGS = (dict(shrinks=(2,), iters=(60,)), dict(shrinks=(2,), iters=(10,)))
+MESH_TRAIN_BUDGET = dict(stage2_epochs=1, stage3_epochs=1, batches_per_epoch=2, batch_size=2)
+MESH_TRAIN_MARKERS = ("STAGE_1_INITIAL_SEGMENTATION", "STAGE_2-3_TRAINING_DENOISER",
+                      "STAGE_2-4_RAW_SOFTMAX", "STAGE_2-5_MASKED_SOFTMAX",
+                      "STAGE_2-6_ENSEMBLING", "STAGE_3-1_DATA_SPLIT", "STAGE_3-4_TRAINING",
+                      "STAGE_3-5_FINAL_FIT", "PIPELINE_TRAINING_COMPLETE")
+
+
+def grad_agreement(got, want) -> dict:
+    """Cosine and norm ratio of two gradients (lists of tensors), in f64."""
+    import torch
+
+    a = torch.cat([g.detach().double().reshape(-1) for g in got])
+    b = torch.cat([g.detach().double().reshape(-1) for g in want])
+    return {"cosine": float(a @ b / (a.norm() * b.norm())),
+            "norm_ratio": float(a.norm() / b.norm())}
+
+
+def _unsharded_grads(loss, params):
+    import torch
+
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def _replicas_equal(trainer) -> bool:
+    import torch
+
+    return all(torch.equal(a, b) for rep in trainer.replicas
+               for a, b in zip(rep.parameters(), trainer.params))
+
+
+def mesh_trainer_steps(work, mesh, dev) -> dict:
+    """The flagship Trainer over ``mesh`` in turns with an unsharded one,
+    from the same weights, batches and generator seeds: MESH_TRAIN_STEPS
+    bf16 steps (the first taken apart: augmented batches, gradients), then
+    one f32 step with TF32 off."""
+    import torch
+
+    from deepwmh_tpu_torch.unet.data import SegDataset
+    from deepwmh_tpu_torch.unet.plan import default_plan_1mm_iso
+    from deepwmh_tpu_torch.unet.train import TrainConfig, Trainer
+
+    plan = default_plan_1mm_iso()
+    ds = SegDataset(plan.patch_size)
+    for i in range(2):
+        ds.add_case("train%d" % i, *_train_cohort(FLAGSHIP_SHAPE, seed=30 + i))
+    np_rng = np.random.RandomState(0)
+    batches = [ds.sample_batch(np_rng, 2, 0.33) for _ in range(MESH_TRAIN_STEPS)]
+    cfg = TrainConfig(epochs=1, batches_per_epoch=MESH_TRAIN_STEPS, batch_size=2, augment=True)
+    trainers = {"unsharded": Trainer(plan, cfg, os.path.join(work, "mt_one"), device=dev),
+                "mesh": Trainer(plan, cfg, os.path.join(work, "mt_mesh"), mesh=mesh)}
+    trainers["unsharded"].init_state(0)
+    trainers["mesh"].load_state_trees(*trainers["unsharded"].state_trees())
+    check(len(trainers["mesh"].replicas) == mesh.size and _replicas_equal(trainers["mesh"]),
+          "mesh trainer: the replicas do not start from the same bits")
+    gens = {name: torch.Generator(device=dev).manual_seed(1) for name in trainers}
+    rows = {name: {"loss": [], "s": [], "peak_gb": []} for name in trainers}
+    first = {}
+    for step in range(MESH_TRAIN_STEPS):
+        for name, tr in trainers.items():
+            images, labels = tr._to_device(*batches[step])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if step == 0:  # train_step taken apart
+                aug = tr.augment(images, labels, gens[name])
+                if tr.mesh is None:
+                    loss = tr.loss(*aug)
+                    grads = _unsharded_grads(loss, tr.params)
+                    loss = loss.detach()
+                else:
+                    loss, grads = tr.mesh_loss_grads(*aug)
+                tr.update(grads, tr.lr_at(0))
+                tr._sync_replicas()
+                first[name] = (aug, grads)
+            else:
+                loss = tr.train_step(images, labels, tr.lr_at(step), gens[name])
+            torch.cuda.synchronize()
+            rows[name]["s"].append(time.perf_counter() - t0)
+            rows[name]["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+            rows[name]["loss"].append(float(loss))
+            check(math.isfinite(rows[name]["loss"][-1]), "%s step %d loss %r"
+                  % (name, step, rows[name]["loss"][-1]))
+            if tr.mesh is not None:
+                check(_replicas_equal(tr), "mesh trainer: replicas differ after step %d" % step)
+    (aug_one, g_one), (aug_mesh, g_mesh) = first["unsharded"], first["mesh"]
+    for k, what in ((0, "images"), (1, "labels")):
+        check(torch.equal(torch.cat(aug_mesh[k]), aug_one[k]),
+              "mesh trainer: the augmented %s differ from the unsharded batch's" % what)
+    bf16 = {"first_step_gradient": grad_agreement(g_mesh, g_one), **{
+        name: dict(rows[name], s_per_step_median=float(np.median(rows[name]["s"][1:])))
+        for name in rows}}
+    del trainers, first, aug_one, aug_mesh, g_one, g_mesh
+    torch.cuda.empty_cache()
+
+    # one f32 step, TF32 off: the loss and gradient of the whole batch
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg32 = TrainConfig(epochs=1, batches_per_epoch=1, batch_size=2, augment=False)
+        one = Trainer(plan, cfg32, os.path.join(work, "mt32_one"), device=dev,
+                      dtype=torch.float32)
+        one.init_state(0)
+        loss_one = one.loss(*one._to_device(*batches[0]))
+        g_one = _unsharded_grads(loss_one, one.params)
+        loss_one = loss_one.detach()
+        sharded = Trainer(plan, cfg32, os.path.join(work, "mt32_mesh"), mesh=mesh,
+                          dtype=torch.float32)
+        sharded.load_state_trees(*one.state_trees())
+        loss_mesh, g_mesh = sharded.mesh_loss_grads(*sharded._to_device(*batches[0]))
+        f32 = {"loss_unsharded": float(loss_one), "loss_mesh": float(loss_mesh),
+               "loss_rel": abs(float(loss_mesh) - float(loss_one)) / abs(float(loss_one)),
+               **grad_agreement(g_mesh, g_one)}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    check(f32["loss_rel"] <= 1e-5, "mesh trainer f32 loss: %r" % f32)
+    check(f32["cosine"] > 0.9999, "mesh trainer f32 gradient: %r" % f32)
+    del one, sharded, g_one, g_mesh
+    torch.cuda.empty_cache()
+    return {"plan": "default_plan_1mm_iso", "patch": list(plan.patch_size), "batch": 2,
+            "steps": MESH_TRAIN_STEPS, "bf16": bf16, "f32_one_step": f32,
+            "augmented_batch_equal": True, "replicas_equal_every_step": True}
+
+
+def mesh_learned(mesh, dev) -> dict:
+    """LearnedRegistration.train over ``mesh`` at the flagship template
+    grid (batch_pairs 1 -> the mesh size): the first step's loss and
+    gradient against the unsharded batch of the same pairs, then
+    MESH_LEARNED_STEPS steps of each, timed in turns."""
+    import io
+
+    import torch
+
+    from deepwmh_tpu_torch.registration.learned import LearnedRegConfig, LearnedRegistration
+    from deepwmh_tpu_torch.registration.priors import synthetic_atlas
+    from deepwmh_tpu_torch.registration.similarity import winsorize_rescale
+    from deepwmh_tpu_torch.unet.model import init_weights
+
+    grid = template_grid(FLAGSHIP_SHAPE, FLAGSHIP_SPACING)
+    vols = [synthetic_atlas(grid, (2.0, 2.0, 2.0), seed=i)[0] for i in range(3)]
+    n = mesh.size
+    one = LearnedRegistration(grid, LearnedRegConfig(batch_pairs=n), device=dev)
+    init_weights(one.model, torch.Generator().manual_seed(0))
+    sharded = LearnedRegistration(grid, LearnedRegConfig(), device=dev)
+    sharded.model.load_state_dict(one.model.state_dict())
+    wins = [winsorize_rescale(torch.from_numpy(v).to(dev)) for v in vols]
+    idx = np.random.RandomState(0).randint(0, len(vols), size=(n, 2))
+    idx[:, 1] = np.where(idx[:, 0] == idx[:, 1], (idx[:, 1] + 1) % len(vols), idx[:, 1])
+    fixed = torch.stack([wins[i] for i in idx[:, 0]])
+    moving = torch.stack([wins[j] for j in idx[:, 1]])
+    loss_one = one._loss(fixed, moving)
+    g_one = _unsharded_grads(loss_one, list(one.model.parameters()))
+    loss_one = loss_one.detach()
+    loss_mesh, g_mesh = sharded.mesh_loss_grads(
+        mesh, sharded.replicas(mesh), [fixed[d:d + 1] for d in range(n)],
+        [moving[d:d + 1] for d in range(n)])
+    first = {"loss_unsharded": float(loss_one), "loss_mesh": float(loss_mesh),
+             "loss_rel": abs(float(loss_mesh) - float(loss_one)) / abs(float(loss_one)),
+             **grad_agreement(g_mesh, g_one)}
+    check(first["loss_rel"] <= 1e-4 and first["cosine"] > 0.99
+          and 0.95 < first["norm_ratio"] < 1.05, "learned dp first step: %r" % first)
+    del one, sharded, g_one, g_mesh, loss_one
+    timed = {}
+    for name in ("unsharded", "mesh", "mesh", "unsharded"):
+        cfg = LearnedRegConfig(steps=MESH_LEARNED_STEPS, batch_pairs=1 if name == "mesh" else n)
+        reg = LearnedRegistration(grid, cfg, device=dev)
+        said = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            loss = reg.train(vols, rng_seed=0, mesh=mesh if name == "mesh" else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(math.isfinite(loss), "learned %s: loss %r" % (name, loss))
+        if name == "mesh":
+            line = "regnet: batch_pairs 1 -> %d (one pair per mesh device)" % n
+            check(line in said.getvalue(), "learned over the mesh did not say %r" % line)
+        timed.setdefault(name, []).append({"loss": loss, "s_per_step": wall / cfg.steps})
+    return {"grid": list(grid), "batch_pairs": "1 -> %d" % n, "steps": MESH_LEARNED_STEPS,
+            "first_step": first, "runs": timed}
+
+
+def mesh_pairs(work, mesh, dev, cases=None) -> dict:
+    """register_pairs_mesh on the group_register phase's two flagship pairs
+    (its cohort, written here when absent), iterations cut, against
+    _pair_core one by one on the card: every output the same bits."""
+    import torch
+
+    from deepwmh_tpu_torch.core import nifti
+    from deepwmh_tpu_torch.registration.affine import (
+        AffineConfig,
+        feasible_affine_cfg,
+        spacing_tensor,
+    )
+    from deepwmh_tpu_torch.registration.group import _pair_core, _to_host, register_pairs_mesh
+    from deepwmh_tpu_torch.registration.svf import SVFConfig, _feasible_cfg
+
+    if cases is None:
+        cases = registration_cohort(os.path.join(work, "mt_reg"), FLAGSHIP_SHAPE,
+                                    FLAGSHIP_SPACING, n_targets=1, seed=0, device=DEVICE)[2]
+    # C order, as the launcher uploads (a pair's bits depend on the layout)
+    fixed = np.ascontiguousarray(np.stack([nifti.load_nifti_simple(cases["tgt0"][0])] * 2),
+                                 np.float16)
+    moving = np.ascontiguousarray(np.stack([nifti.load_nifti_simple(cases[c][0])
+                                            for c in ("src0", "src1")]), np.float16)
+    acfg, scfg = AffineConfig(**MESH_PAIR_CFGS[0]), SVFConfig(**MESH_PAIR_CFGS[1])
+    sp = spacing_tensor(FLAGSHIP_SPACING, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [_to_host(_pair_core(torch.from_numpy(fixed[i]).to(dev),
+                                torch.from_numpy(moving[i]).to(dev), sp, sp,
+                                feasible_affine_cfg(acfg, FLAGSHIP_SHAPE),
+                                _feasible_cfg(scfg, FLAGSHIP_SHAPE), True)) for i in range(2)]
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = register_pairs_mesh(fixed, moving, FLAGSHIP_SPACING, FLAGSHIP_SPACING, mesh,
+                              affine_cfg=acfg, svf_cfg=scfg)
+    mesh_s = time.perf_counter() - t0
+    for i in range(2):
+        for k, what in enumerate(("matrix", "affine loss", "displacement", "SVF loss",
+                                  "warped image")):
+            check(np.array_equal(got[k][i], np.asarray(want[i][k], dtype=got[k].dtype)),
+                  "register_pairs_mesh: pair %d's %s differs from one by one" % (i, what))
+    return {"shape": list(FLAGSHIP_SHAPE), "pairs": 2, "affine_cfg": MESH_PAIR_CFGS[0],
+            "svf_cfg": MESH_PAIR_CFGS[1], "one_by_one_s": one_s, "mesh_s": mesh_s,
+            "bit_equal": True}
+
+
+def mesh_run_train(kernels, work, mesh) -> tuple:
+    """run_train over ``mesh`` on a 2 x 2 phantom cohort at 64x80x64 (quick
+    registration, 1 / 1 epoch x 2 steps, batch 2): the kernels' launches,
+    the markers, the release installed; then a resume through the train
+    CLI with --mesh (this process's cards) that trains nothing."""
+    import io
+
+    import torch
+
+    from deepwmh_tpu_torch.cli import train as train_cli
+    from deepwmh_tpu_torch.cli.train import run_train
+    from deepwmh_tpu_torch.eval.phantom import write_cohort
+    from deepwmh_tpu_torch.pipeline.multistage import StageBudget
+    from deepwmh_tpu_torch.unet.release import install_model
+
+    root = os.path.join(work, "mesh_train_e2e")
+    ref_csv, train_csv, _ = write_cohort(os.path.join(root, "data"), shape=E2E_SHAPE,
+                                         spacing=E2E_SPACING, n_ref=2, n_train=2, seed=0,
+                                         device=DEVICE)
+    out = os.path.join(root, "out")
+    stats = {}
+    core, launches, wall = _counted(kernels, lambda: run_train(
+        ref_csv, train_csv, out, quick_registration=True, large_deformation=False,
+        budget=StageBudget(**MESH_TRAIN_BUDGET), mesh=mesh, stage_stats=stats))
+    for name in ("instance_norm_stats", "instance_norm_act"):
+        check(launches[name] > 0, "%s was not launched on run_train over the mesh" % name)
+    check(launches["median3"] == 2, "run_train over the mesh: K2 launched %d times, expected "
+          "one a case (2)" % launches["median3"])
+    for m in MESH_TRAIN_MARKERS:
+        check(os.path.isfile(os.path.join(core, "Checkpoints", m)), "marker %s missing" % m)
+    install_model(os.path.join(core, "Model_release", "model_release.tar.gz"),
+                  os.path.join(root, "model"))
+
+    stamps = _checkpoint_stamps(core)
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        train_cli.main(["-s", ref_csv, "-t", train_csv, "-o", out, "--mesh",
+                        "--skip-integrity-check", "--allow-quick-registration",
+                        "--no-allow-large-deformations"] + sum(
+            (["--" + k.replace("_", "-"), str(v)] for k, v in MESH_TRAIN_BUDGET.items()), []))
+    resume_s = time.perf_counter() - t0
+    line = "mesh: %d device(s) (%s)" % (torch.cuda.device_count(), torch.cuda.get_device_name(0))
+    check(line in said.getvalue(), "the train CLI's --mesh resume did not say %r" % line)
+    check(_checkpoint_stamps(core) == stamps and "epoch " not in said.getvalue(),
+          "the train CLI's --mesh resume trained:\n%s" % said.getvalue()[-2000:])
+    return launches, {"shape": list(E2E_SHAPE), "references": 2, "patients": 2,
+                      "budget": MESH_TRAIN_BUDGET, "wall_s": wall, "launches": launches,
+                      "stage_s": {k: v["s"] for k, v in stats.items()},
+                      "peak_device_gb": max(st.get("peak_gb", 0.0) for st in stats.values()),
+                      "cli_mesh_resume_s": resume_s}
+
+
+def phase_mesh_train(kernels, work, smi, cases=None):
+    """The training side of the device mesh on a 2-shard mesh whose shards
+    both name this card (``Mesh([cuda:0] * 2)``): the flagship dp Trainer,
+    the learned registration's dp training at the flagship template grid,
+    ``register_pairs_mesh`` on two flagship pairs, and ``run_train`` over
+    the mesh with a ``--mesh`` CLI resume. Returns the kernels' launches on
+    run_train over the mesh."""
+    import torch
+
+    from deepwmh_tpu_torch.device import resolve_device
+    from deepwmh_tpu_torch.parallel.mesh import Mesh
+
+    dev = resolve_device(DEVICE)
+    mesh = Mesh([dev] * MESH_TRAIN_SHARDS)
+    out = {"phase": "mesh_train", "nvidia_smi": smi, "shards": MESH_TRAIN_SHARDS,
+           "mesh_devices": sorted({str(d) for d in mesh.devices})}
+    t0 = time.perf_counter()
+    out["trainer"] = mesh_trainer_steps(work, mesh, dev)
+    out["trainer_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["learned"] = mesh_learned(mesh, dev)
+    out["learned_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["pairs"] = mesh_pairs(work, mesh, dev, cases)
+    out["pairs_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    launches, out["run_train"] = mesh_run_train(kernels, work, mesh)
+    emit(out)
+    return launches
 
 
 def planted_lesions(shape, n, seed):
@@ -3529,7 +3871,8 @@ def main(argv=None) -> int:
                         help="Instead of every phase, only dicom_predict and oasis3_prep "
                         "(after the build).")
     parser.add_argument("--mesh", action="store_true",
-                        help="Instead of every phase, only mesh (after the build).")
+                        help="Instead of every phase, only mesh and mesh_train (after the "
+                        "build).")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3587,6 +3930,7 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=HERE) as work:
             run(phase_mesh, kernels, work, smi, flagship_package(work),
                 synthetic_flair(FLAGSHIP_SHAPE, seed=0))
+            run(phase_mesh_train, kernels, work, smi)
         emit({"phase": "done", "total_s": time.perf_counter() - t_start, "phase_s": phase_s,
               "nvidia_smi": smi})
         print(smi, flush=True)
@@ -3609,6 +3953,7 @@ def main(argv=None) -> int:
         learned_launches, learned_row = run(phase_learned, kernels, work, smi, cases)
         run(phase_priors, work, smi, cases)
         run(phase_reg_card_vs_cpu, work)
+        mesh_train_launches = run(phase_mesh_train, kernels, work, smi, cases)
         train_launches, train_plan = run(phase_train_e2e, kernels, work, smi, flair, pkg)
         convert_launches = run(phase_convert_evaluate, kernels, work, smi)
         dicom_launches, _, src_nii, dicom_out = run(phase_dicom_predict, kernels, work, smi, pkg)
@@ -3650,11 +3995,14 @@ def main(argv=None) -> int:
         entry["dicom_launches"] = dicom_launches[entry["name"]]
     # and on the mesh paths (phase mesh): the 8-shard predict_case_full for
     # K1's two, the halo-sharded median for K2
+    # and on run_train over the 2-shard mesh (phase mesh_train): K1's two in
+    # the stage 2-4 / 3-5 sweeps, K2 once a stage-1 case
     for entry in (k1_entry, act_entry, k2_entry):
         entry["mesh_launches"] = mesh_launches[entry["name"]]
+        entry["mesh_train_launches"] = mesh_train_launches[entry["name"]]
     check(set(launches) == set(stage1_launches) == set(learned_launches) == set(train_launches)
           == set(convert_launches) == set(dicom_launches) == set(mesh_launches)
-          == {"instance_norm_stats", "instance_norm_act", "median3"},
+          == set(mesh_train_launches) == {"instance_norm_stats", "instance_norm_act", "median3"},
           "unlisted kernels: %s" % sorted(launches))
     # the policy's readings at the flagship shape (registration/policy.py
     # holds those of --e2e-dice at 64x80x64)

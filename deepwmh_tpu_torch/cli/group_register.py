@@ -11,8 +11,11 @@ one shard, and finished pairs are skipped, so re-running is safe), plus
       --allow-quick-registration --allow-large-deformations
 
 It runs on CUDA (``-g i`` picks ``cuda:i``); the CPU only with
-``--device cpu``. ``--batch-pairs N`` is accepted and pairs run one by one;
-``--mesh`` (multi-device sharding) is not ported and exits with an error.
+``--device cpu``. ``--mesh`` takes a device mesh over every visible card
+(of every process of a run joined by the ``DEEPWMH_*`` contract): the
+classic mode registers pair batches of ``--batch-pairs`` (raised to the
+mesh size) over it, the learned mode trains its network data parallel over
+it. Without a mesh pairs run one by one.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import argparse
 
 from deepwmh_tpu_torch.core.manifests import load_csv_simple
+from deepwmh_tpu_torch.parallel.mesh import init_distributed_from_env, make_mesh
 
 
 def add_device_args(parser) -> None:
@@ -64,10 +68,11 @@ def make_parser() -> argparse.ArgumentParser:
                         "an affine template, train one registration network on the "
                         "cohort, register every pair with a single forward pass.")
     parser.add_argument("--mesh", action="store_true",
-                        help="Multi-device sharding: not ported to the GPU package "
-                        "(exits with an error).")
+                        help="Shard pair batches (classic mode) or the network's training "
+                        "(--learned) over every visible card; excludes -g / --device.")
     parser.add_argument("--batch-pairs", type=int, default=1,
-                        help="Accepted for CLI compatibility; pairs run one by one.")
+                        help="Register N same-geometry pairs at a time over the mesh "
+                        "(raised to the mesh size); without --mesh pairs run one by one.")
     parser.add_argument("-d", "--distributed", type=str, default=None,
                         help="'a/b': run shard a (1-based) of b machines.")
     parser.add_argument("--svf-warm-start", action="store_true",
@@ -83,9 +88,13 @@ def main(argv=None):
     parser = make_parser()
     args = parser.parse_args(argv)
     device = device_from_args(parser, args)
+    mesh = None
     if args.mesh:
-        raise SystemExit("--mesh: multi-device pair sharding is not ported to the GPU "
-                         "package yet (ROADMAP A13, second half); run without --mesh.")
+        if device is not None:
+            parser.error("--mesh and -g/--gpu or --device are mutually exclusive")
+        init_distributed_from_env()
+        mesh = make_mesh()
+        device = mesh.home
 
     src = load_csv_simple(args.source, key_names=["case", "data"])
     tgt = load_csv_simple(args.target, key_names=["case", "data"])
@@ -109,7 +118,10 @@ def main(argv=None):
             raise SystemExit("--learned does not support: %s (learned mode always keeps "
                              "deformations; pyramid/batching flags are classic-mode only)."
                              % " ".join(ignored))
-        LearnedGroupRegistration(sources, targets, args.output_folder, device=device).launch()
+        if mesh is not None:
+            print("mesh: dp pair batches over %d device(s) for network training" % mesh.size)
+        LearnedGroupRegistration(sources, targets, args.output_folder, mesh=mesh,
+                                 device=device).launch()
         print("learned group registration finished.")
         return
 
@@ -126,7 +138,11 @@ def main(argv=None):
         device=device,
     )
     print("%d registration pair(s) in this shard." % len(reg.tasks))
-    reg.launch(batch_pairs=args.batch_pairs)
+    batch_pairs = args.batch_pairs
+    if mesh is not None:
+        batch_pairs = max(batch_pairs, mesh.size)
+        print("mesh: sharding pair batches over %d device(s)" % mesh.size)
+    reg.launch(batch_pairs=batch_pairs, mesh=mesh)
     print("group registration finished.")
 
 

@@ -18,8 +18,13 @@ a/b`` registers one shard of the pairs, for machines sharing the output
 folder; the run stops with exit code 2 until every pair is done.
 
 It runs on CUDA (``-g i`` picks ``cuda:i``); the CPU only with ``--device
-cpu``. ``--batch-pairs`` is accepted and pairs run one by one; ``--mesh``
-(multi-device sharding) is not ported and exits with an error.
+cpu``. With more than one card visible (on this process, or over the
+processes of a run joined by the ``DEEPWMH_COORDINATOR`` /
+``DEEPWMH_NUM_PROCESSES`` / ``DEEPWMH_PROCESS_ID`` contract) the run takes a
+device mesh over them: registration pair batches (``--batch-pairs``, raised
+to the mesh size) and the training steps are sharded over it. ``-g`` and
+``--device`` turn the automatic mesh off; ``--mesh`` / ``--no-mesh`` force
+the choice (``--mesh`` needs a card and excludes ``-g`` / ``--device``).
 """
 
 from __future__ import annotations
@@ -36,11 +41,7 @@ from deepwmh_tpu_torch.core import nifti
 from deepwmh_tpu_torch.core.artifacts import join_path, mkdir
 from deepwmh_tpu_torch.core.manifests import check_dataset, load_csv_simple, write_csv_simple
 from deepwmh_tpu_torch.device import resolve_device
-
-MESH_NOT_PORTED = ("--mesh: multi-device registration and training are not ported to the "
-                   "GPU package yet (ROADMAP A13, second half); run without --mesh "
-                   "(-g i picks a card).")
-
+from deepwmh_tpu_torch.parallel.mesh import make_mesh
 
 def n4_preprocess_cases(cases, flairs, out_folder, skip_bfc=False, device=None,
                         pinned=False):
@@ -129,10 +130,15 @@ def run_train(
     (``registration/policy.py``). learned_reg_cfg: a LearnedRegConfig for
     the learned mode (None: the production one). svf_warm_start: seed the
     svf pairs from the anchor row's composition (``registration/warm.py``).
-    device: CUDA unless the CPU is asked for; ``mesh`` is not ported.
-    stage_stats: a dict that receives the seconds (and on a card the peak
-    memory) of each step that runs: "n4", "registration",
-    "label_propagation", then the pipeline's stages and the release."""
+    device: CUDA unless the CPU is asked for (with ``mesh``, the mesh's
+    home shard's by default). mesh: a ``parallel.mesh.Mesh``; the svf
+    pairs go through ``register_pairs_mesh`` in chunks of at least the mesh
+    size (the warm-start schedule stays serial on one device), the learned
+    network and every pipeline Trainer train data parallel over it, and
+    stage I deals its cases over it. stage_stats: a dict that receives the
+    seconds (and on a card the peak memory) of each step that runs: "n4",
+    "registration", "label_propagation", then the pipeline's stages and the
+    release."""
     from deepwmh_tpu_torch.pipeline.multistage import (
         PipelineMultistage,
         StageBudget,
@@ -170,9 +176,7 @@ def run_train(
             )
         if registration_mode == "auto":
             registration_mode = "svf"
-    if mesh is not None:
-        raise SystemExit(MESH_NOT_PORTED)
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.home if device is None and mesh is not None else device)
     stats = {} if stage_stats is None else stage_stats
 
     # absolute paths: regsource/regtarget.csv and run_registration.sh are
@@ -237,7 +241,7 @@ def run_train(
             from deepwmh_tpu_torch.registration.learned_group import LearnedGroupRegistration
 
             reg = LearnedGroupRegistration(S, T, registration_folder, reg_cfg=learned_reg_cfg,
-                                           device=dev)
+                                           mesh=mesh, device=dev)
             reg.launch()
         else:
             reg = GroupRegistration(S, T, registration_folder, keep_deformation=True,
@@ -249,7 +253,16 @@ def run_train(
                 print("svf warm start: disabled — needs >= 2 reference cases "
                       "to form an anchor row (%d given); running the cold "
                       "schedule instead" % len(S))
-            reg.launch(batch_pairs=1 if reg.warm_start else batch_pairs)
+            if reg.warm_start:
+                # the warm schedule is serial (anchor row first) on one device
+                if mesh is not None:
+                    print("svf warm start: registration runs serially on one "
+                          "chip (mesh still shards pipeline training)")
+                reg.launch()
+            else:
+                if mesh is not None:
+                    batch_pairs = max(batch_pairs, mesh.size)
+                reg.launch(batch_pairs=batch_pairs, mesh=mesh)
 
     # barrier: with --distributed this shard did only part of the pairs;
     # go on only when every pair's full artifact set loads
@@ -281,7 +294,8 @@ def run_train(
                     outs, interp="NearestNeighbor", device=dev)
 
     # 004: the 3-stage pipeline, recording its stages beside the steps above
-    pipeline = PipelineMultistage(core_folder, budget=budget or StageBudget(), device=dev)
+    pipeline = PipelineMultistage(core_folder, budget=budget or StageBudget(), mesh=mesh,
+                                  device=dev)
     pipeline.stage_stats = stats
     for t in training_dataset["case"]:
         refs = [join_path(registration_folder, "%s.nii.gz" % pair_name(s, t))
@@ -303,7 +317,7 @@ def run_train(
     return core_folder
 
 
-def main(argv=None):
+def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Train the full annotation-free WMH segmentation pipeline "
         "end to end (PyTorch/CUDA DeepWMH_train).",
@@ -329,8 +343,10 @@ def main(argv=None):
                         help="Large-deformation capacity: more iterations, 2^4 "
                         "integration steps, the exact exp gradient.")
     parser.add_argument("--mesh", action=argparse.BooleanOptionalAction, default=None,
-                        help="Multi-device sharding: not ported to the GPU package "
-                        "(exits with an error).")
+                        help="Shard registration pair batches and training steps over all "
+                        "visible cards (of every process of the run). Default: on when "
+                        "more than one card is visible and neither -g nor --device is "
+                        "given.")
     parser.add_argument("--run-stages", choices=["initseg", "denoise", "full"],
                         default="full", help="[Advanced] Run a pipeline prefix.")
     parser.add_argument("--distributed", type=str, default=None,
@@ -343,7 +359,8 @@ def main(argv=None):
                         help="[Advanced] Override the 150 batches/epoch budget.")
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--batch-pairs", type=int, default=1,
-                        help="Accepted for CLI compatibility; pairs run one by one.")
+                        help="Register N same-geometry pairs at a time over the mesh "
+                        "(raised to the mesh size); without a mesh pairs run one by one.")
     parser.add_argument("--registration-mode", choices=["auto", "svf", "learned"],
                         default="auto",
                         help="'svf' optimises every pair, 'learned' trains one network "
@@ -356,10 +373,14 @@ def main(argv=None):
                         "needs >= 2 reference cases.")
     parser.add_argument("--skip-integrity-check", action="store_true")
     add_device_args(parser)
+    return parser
+
+
+def main(argv=None):
+    parser = make_parser()
     args = parser.parse_args(argv)
     device = device_from_args(parser, args)
-    if args.mesh:
-        raise SystemExit(MESH_NOT_PORTED)
+    mesh = mesh_from_args(parser, args)
 
     if not args.skip_integrity_check and not check_system_integrity(device):
         raise SystemExit(1)
@@ -392,8 +413,32 @@ def main(argv=None):
         batch_pairs=args.batch_pairs,
         registration_mode=args.registration_mode,
         svf_warm_start=args.svf_warm_start,
+        mesh=mesh,
         device=device,
     )
+
+
+def mesh_from_args(parser, args):
+    """The run's mesh (after joining a multi-process run from the
+    environment): all visible cards when ``--mesh`` is given, or by default
+    when more than one card is visible and neither ``-g`` nor ``--device``
+    pins the run; None otherwise."""
+    from deepwmh_tpu_torch.parallel.mesh import device_info, init_distributed_from_env
+
+    if args.mesh and (args.gpu is not None or args.device is not None):
+        parser.error("--mesh and -g/--gpu or --device are mutually exclusive")
+    init_distributed_from_env()
+    use_mesh = args.mesh
+    if use_mesh is None:
+        use_mesh = (args.gpu is None and args.device is None and torch.cuda.is_available()
+                    and device_info()["device_count"] > 1)
+    if not use_mesh:
+        return None
+    mesh = make_mesh()
+    home = mesh.home
+    print("mesh: %d device(s) (%s)" % (mesh.size, torch.cuda.get_device_name(home)
+                                       if home.type == "cuda" else home.type))
+    return mesh
 
 
 if __name__ == "__main__":

@@ -6,13 +6,12 @@ entry()             -> (forward, (model, x)): the flagship 3D U-Net's
                        128^3 patch, random weights from seed 0) on the card.
 dryrun_multichip(n) -> this package's mesh paths on an n-shard CPU mesh
                        (``Mesh([cpu] * n)``) at the JAX dryrun's tiny shapes:
-                       the patch- and flip-sharded sweeps, ``predict_case``
-                       and a 3-case burst on the mesh, the halo-sharded
-                       median and z-score, ``mean_std_grid`` and N4.
-
-The JAX dryrun also runs a data-parallel train step, ``register_pairs_mesh``
-and the learned registration's data-parallel training; those mesh paths are
-ROADMAP A13's second half and not in this dryrun yet.
+                       a data-parallel train step, the patch- and
+                       flip-sharded sweeps, ``predict_case`` and a 3-case
+                       burst on the mesh, the halo-sharded median and
+                       z-score, ``mean_std_grid`` and N4,
+                       ``register_pairs_mesh`` and the learned
+                       registration's data-parallel training.
 
     python -c "from deepwmh_tpu_torch.entry import dryrun_multichip; dryrun_multichip(8)"
 """
@@ -41,6 +40,8 @@ def entry():
 
 
 def dryrun_multichip(n_devices: int) -> None:
+    import tempfile
+
     import numpy as np
     import torch
 
@@ -60,8 +61,22 @@ def dryrun_multichip(n_devices: int) -> None:
         base_features=4,
         max_features=16,
     )
-    model = init_weights(UNet3D(plan), torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
+
+    # one data-parallel train step: a batch row a shard, augmentation on
+    from deepwmh_tpu_torch.unet.train import TrainConfig, Trainer
+
+    cfg = TrainConfig(epochs=1, batches_per_epoch=1, batch_size=n_devices, augment=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(plan, cfg, tmp, mesh=mesh)
+        trainer.init_state(0)
+        imgs = rng.rand(n_devices, 16, 16, 16).astype(np.float32)
+        lbls = (rng.rand(n_devices, 16, 16, 16) > 0.8).astype(np.int32)
+        loss = trainer.train_step(*trainer._to_device(imgs, lbls), trainer.lr_at(0),
+                                  torch.Generator().manual_seed(1))
+    print("dryrun_multichip(%d): train step ok, loss=%.4f" % (n_devices, float(loss)))
+
+    model = init_weights(UNet3D(plan), torch.Generator().manual_seed(0))
 
     # mesh-sharded sliding-window inference: patch blocks + psum merge
     pred = ShardedSlidingWindowPredictor(model, plan, mesh, tta=False, mode="patch")
@@ -94,3 +109,27 @@ def dryrun_multichip(n_devices: int) -> None:
     corr = hops.n4_bias_correction(n4vol, levels=1, iters_per_level=2)
     print("dryrun_multichip(%d): sharded mean_std_grid %s + N4 %s ok"
           % (n_devices, tuple(mu.shape), tuple(corr.shape)))
+
+    # mesh-sharded pair registration: a block of pairs a shard
+    from deepwmh_tpu_torch.registration.affine import AffineConfig
+    from deepwmh_tpu_torch.registration.group import register_pairs_mesh
+    from deepwmh_tpu_torch.registration.svf import SVFConfig
+
+    fx = rng.rand(n_devices, 12, 14, 12).astype(np.float32)
+    mv = rng.rand(n_devices, 12, 14, 12).astype(np.float32)
+    mats, _, _, _, warped = register_pairs_mesh(
+        fx, mv, (1.0, 1.0, 1.0), (1.0, 1.0, 1.0), mesh,
+        affine_cfg=AffineConfig(shrinks=(2,), iters=(2,)),
+        svf_cfg=SVFConfig(shrinks=(2,), iters=(2,)))
+    print("dryrun_multichip(%d): mesh-sharded registration ok, mats %s warped %s"
+          % (n_devices, tuple(mats.shape), tuple(warped.shape)))
+
+    # the registration network's data-parallel training
+    from deepwmh_tpu_torch.registration.learned import LearnedRegConfig, LearnedRegistration
+
+    lreg = LearnedRegistration((8, 8, 8), LearnedRegConfig(
+        base_features=2, max_features=4, num_pools=1, steps=1, batch_pairs=n_devices),
+        device="cpu")
+    vols = [rng.rand(8, 8, 8).astype(np.float32) * 100 for _ in range(3)]
+    loss = lreg.train(vols, verbose=False, mesh=mesh)
+    print("dryrun_multichip(%d): learned-reg dp training ok, loss %.4f" % (n_devices, loss))

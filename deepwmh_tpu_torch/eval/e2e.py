@@ -83,7 +83,7 @@ def run_e2e_accuracy(
     Dice), "stage_stats" (run_train's seconds per step and stage)}; the
     held-out entries only with run_stages 'full'. Resumes from
     the artifacts under ``work_dir``. ``device``: CUDA unless the CPU is
-    asked for; ``mesh`` is not ported (ROADMAP A13, second half)."""
+    asked for. ``mesh``: ``run_train`` and ``run_predict`` over it."""
     from deepwmh_tpu_torch.cli.predict import run_predict
     from deepwmh_tpu_torch.cli.train import run_train
     from deepwmh_tpu_torch.unet.release import install_model
@@ -127,7 +127,8 @@ def run_e2e_accuracy(
                                   os.path.join(work_dir, "installed_model"))
         pred_dir = os.path.join(work_dir, "predict_out")
         run_predict([p for _, p in test_cases], [c for c, _ in test_cases], model_dir,
-                    pred_dir, skip_bfc=skip_bfc, make_previews=False, device=device)
+                    pred_dir, skip_bfc=skip_bfc, make_previews=False, mesh=mesh,
+                    device=device)
         for case, _ in test_cases:
             pred = nifti.load_nifti_simple(os.path.join(
                 pred_dir, "002_Segmentations", "003_postproc_fov", "%s.nii.gz" % case))

@@ -30,8 +30,10 @@ Usage:
       [--scanner mMR|TrioTim] [--output DIR] [--rater-dir DIR] \\
       [--limit-reference N] [--limit-training N] [-g i | --device cpu]
 
-CUDA unless the CPU is asked for. ``--mesh`` (multi-device) is not ported
-and exits naming ROADMAP A13, second half.
+CUDA unless the CPU is asked for. ``--mesh`` / ``--no-mesh`` as
+DeepWMH_train's (``cli/train.py``): by default a mesh over the visible
+cards when there is more than one, which shards the pipeline's
+registration pair batches and training steps.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import os
 
 import torch
 
+from deepwmh_tpu_torch.cli import train as train_cli
 from deepwmh_tpu_torch.cli.group_register import add_device_args, device_from_args
 from deepwmh_tpu_torch.core import nifti
 from deepwmh_tpu_torch.core.artifacts import join_path, mkdir
@@ -154,8 +157,6 @@ def evaluate_training_fit(training_cases, fit_dir, rater_dir, output_folder, dev
 
 
 def main(argv=None):
-    from deepwmh_tpu_torch.cli.train import MESH_NOT_PORTED
-
     ap = argparse.ArgumentParser(
         description="OASIS-3 annotation-free WMH training replication "
         "(PyTorch/CUDA; reference experiments/010_OASIS3)."
@@ -183,13 +184,14 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--skip-bfc", action="store_true")
     ap.add_argument("--mesh", action=argparse.BooleanOptionalAction, default=None,
-                    help="Multi-device sharding: not ported to the GPU package "
-                    "(exits with an error).")
+                    help="Shard registration pair batches and training steps over all "
+                    "visible cards, as DeepWMH_train's --mesh. Default: on when more "
+                    "than one card is visible and neither -g nor --device is given.")
     add_device_args(ap)
     args = ap.parse_args(argv)
     device = device_from_args(ap, args)
-    if args.mesh:
-        raise SystemExit(MESH_NOT_PORTED)
+    mesh = train_cli.mesh_from_args(ap, args)
+    prep_device = mesh.home if mesh is not None else device  # the steps off the mesh
 
     cohort = COHORTS[args.scanner]
     refs = list(zip(cohort["reference"], cohort["reference_desc"]))
@@ -216,7 +218,7 @@ def main(argv=None):
         print("preparing reference %s" % case, flush=True)
         l1, l2 = prepare_reference_case(
             case, t1w, flair, args.atlas_image, args.atlas_label,
-            join_path(prep_folder, case), device=device,
+            join_path(prep_folder, case), device=prep_device,
         )
         ref_rows["case"].append(case)
         ref_rows["desc"].append(desc)
@@ -235,7 +237,6 @@ def main(argv=None):
     })
 
     # 5) the pipeline, in process (the reference shells out)
-    from deepwmh_tpu_torch.cli.train import run_train
     from deepwmh_tpu_torch.pipeline.multistage import StageBudget
 
     overrides = {
@@ -247,8 +248,8 @@ def main(argv=None):
         }.items() if v is not None
     }
     budget = StageBudget(**overrides) if overrides else None
-    core = run_train(reference_csv, training_csv, output_folder,
-                     skip_bfc=args.skip_bfc, budget=budget, device=device)
+    core = train_cli.run_train(reference_csv, training_csv, output_folder,
+                               skip_bfc=args.skip_bfc, budget=budget, mesh=mesh, device=device)
 
     fit_dir = join_path(core, "Stage_3_DCNN_training", "002_training_fit", "3mm_postproc")
     print("\n** Pipeline training finished; training fit in %s **" % fit_dir)
@@ -256,7 +257,7 @@ def main(argv=None):
     # 6) two-rater + intra-rater evaluation
     if os.path.isdir(rater_dir):
         eval_csv = evaluate_training_fit(
-            [c for c, _ in train], fit_dir, rater_dir, output_folder, device=device
+            [c for c, _ in train], fit_dir, rater_dir, output_folder, device=prep_device
         )
         if eval_csv:
             print("** Evaluation saved to %s **" % eval_csv)

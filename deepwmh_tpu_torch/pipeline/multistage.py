@@ -20,8 +20,10 @@ Training builds its model with ``fused_norm`` off (K1's kernels have no
 backward). The sweeps of stages 2-4 and 3-5 run one inference model on K1
 under ``torch.inference_mode``; stage 2-4 loads each ensemble epoch's
 weights into it in place. Every phase that runs records its seconds (and
-its peak device memory on a card) in ``stage_stats``. No mesh: multi-GPU
-training is not ported.
+its peak device memory on a card) in ``stage_stats``. With ``mesh`` (a
+``parallel.mesh.Mesh``) stage I deals its cases over the mesh's shards
+and every Trainer takes data-parallel steps over it; the sweeps of stages
+2-4 and 3-5 stay on one device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,10 +58,6 @@ from deepwmh_tpu_torch.unet.preprocess import normalize_zscore, resample_volume
 from deepwmh_tpu_torch.unet.release import release_model
 from deepwmh_tpu_torch.unet.train import TrainConfig, Trainer
 from deepwmh_tpu_torch.utils.logging import SimpleTxtLog
-
-MESH_NOT_PORTED = ("pipeline training over a device mesh is not ported to the GPU "
-                   "package yet (ROADMAP A13, second half); run on one card")
-
 
 @contextlib.contextmanager
 def timed_stage(stats: dict, name: str, device, log=print):
@@ -106,13 +104,13 @@ class PipelineMultistage:
 
     def __init__(self, output_folder: str, intensity_prior: str = "+",
                  budget: StageBudget = None, mesh=None, device=None):
-        """``device``: CUDA unless the CPU is asked for; ``mesh`` is not
-        ported and raises."""
+        """``device``: CUDA unless the CPU is asked for (with ``mesh``, the
+        mesh's home shard's by default). ``mesh``: stage I and the
+        training steps over its shards."""
         if intensity_prior not in ("+", "-", None):
             raise ValueError("intensity_prior must be '+', '-' or None")
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.home if device is None and mesh is not None else device)
         self.folder = mkdir(os.path.abspath(output_folder))
         self.intensity_prior = intensity_prior
         self.budget = budget or StageBudget()
@@ -216,7 +214,8 @@ class PipelineMultistage:
             noval=noval,
             save_every_epoch=save_every_epoch,
         )
-        return Trainer(plan, cfg, self._train_dir(task), device=self.device, logger=self.logger)
+        return Trainer(plan, cfg, self._train_dir(task), device=self.device, logger=self.logger,
+                       mesh=self.mesh)
 
     def _load_state(self, task: str, checkpoint_name: str) -> dict:
         """A checkpoint of the task's training folder (either package's) as
@@ -243,7 +242,8 @@ class PipelineMultistage:
         if not self.checkpoints.is_finished("STAGE_1_INITIAL_SEGMENTATION"):
             with self._stage("stage1"):
                 self.analyzer.analyze_and_do_segmentation(
-                    intensity_prior=self.intensity_prior, do_postprocessing=True)
+                    intensity_prior=self.intensity_prior, do_postprocessing=True,
+                    mesh=None if self.mesh is None else self.mesh.local())
             self.checkpoints.set_finish("STAGE_1_INITIAL_SEGMENTATION")
         self.log("stage 1 complete.")
 

@@ -17,12 +17,17 @@ reads and resumes the other's):
 
 The numbers pass through the same casts as there: fixed and moving are
 uploaded as f16, the displacement and the warped image come back as f16.
-Pairs run one by one (``batch_pairs`` is accepted for the CLI's sake); the
-multi-device mesh is not ported and raises.
+Without a mesh pairs run one by one (``batch_pairs`` is accepted for the
+CLI's sake). ``register_pairs_mesh`` spreads a batch of same-geometry pairs
+over a device mesh: shard d takes a contiguous block and runs its pairs one
+by one on its device (a thread a distinct card), so every pair gives the
+one-by-one launch's bits; ``launch(mesh=)`` sends each chunk of
+``batch_pairs`` same-geometry pairs through it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -32,6 +37,7 @@ import torch
 from deepwmh_tpu_torch.core import nifti
 from deepwmh_tpu_torch.core.artifacts import atomic_write_json, join_path, load_json, mkdir
 from deepwmh_tpu_torch.device import resolve_device
+from deepwmh_tpu_torch.parallel.mesh import barrier, gather_shards
 from deepwmh_tpu_torch.registration.affine import (
     AffineConfig,
     _affine_core,
@@ -45,10 +51,6 @@ from deepwmh_tpu_torch.registration.svf import (
     _svf_core,
     apply_affine_svf,
 )
-
-MESH_NOT_PORTED = ("multi-device pair sharding (mesh) is not ported to the GPU package "
-                   "yet (ROADMAP A13, second half); run without it")
-
 
 def pair_name(source_case: str, target_case: str) -> str:
     return "%s_to_%s" % (source_case, target_case)
@@ -78,6 +80,62 @@ def _to_host(outs):
     return (mat.cpu().numpy(), float(aff_loss),
             None if disp16 is None else disp16.cpu().numpy(),
             None if svf_loss is None else float(svf_loss), warped16.cpu().numpy())
+
+
+def register_pairs_mesh(fixed_stack, moving_stack, fixed_spacing, moving_spacing, mesh,
+                        affine_cfg=None, svf_cfg=None, deformable=True):
+    """Data-parallel pair registration over a ``parallel.mesh.Mesh``: the
+    [B, D, H, W] stacks (cast to f16, as uploaded) are padded to a multiple
+    of the mesh size by repeating the last pair, shard d takes a contiguous
+    block and runs its pairs one by one through ``_pair_core`` on its device,
+    a thread a distinct device; the padding is dropped. On a mesh across
+    processes each process registers its own shards' pairs and the outputs
+    are gathered, so every process returns all B rows. Returns JAX's tuple
+    layout on the host: (mats [B,3,4], affine losses [B], disp16
+    [B,3,D,H,W] or None, SVF losses [B] or None, warped16 [B,D,H,W])."""
+    n = mesh.size
+    B = int(np.shape(fixed_stack)[0])
+    pad = (-B) % n
+    fixed_stack = np.asarray(fixed_stack, np.float16)
+    moving_stack = np.asarray(moving_stack, np.float16)
+    if pad:
+        fixed_stack = np.concatenate([fixed_stack, np.repeat(fixed_stack[-1:], pad, axis=0)])
+        moving_stack = np.concatenate([moving_stack, np.repeat(moving_stack[-1:], pad, axis=0)])
+    shape = tuple(fixed_stack.shape[1:])
+    acfg = feasible_affine_cfg(affine_cfg or AffineConfig(), shape)
+    scfg = _feasible_cfg(svf_cfg or SVFConfig(), shape)
+    rows = (B + pad) // n
+
+    def run_shards(dev, shards):
+        # a device's shards in order, its pairs one by one
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            fsp, msp = spacing_tensor(fixed_spacing, dev), spacing_tensor(moving_spacing, dev)
+            return {d: [_to_host(_pair_core(
+                torch.from_numpy(np.ascontiguousarray(fixed_stack[i])).to(dev),
+                torch.from_numpy(np.ascontiguousarray(moving_stack[i])).to(dev),
+                fsp, msp, acfg, scfg, deformable)) for i in range(d * rows, (d + 1) * rows)]
+                for d in shards}
+
+    by_device = {}
+    for d in mesh.local_shards:
+        by_device.setdefault(mesh.devices[d], []).append(d)
+    per_shard = {}
+    with ThreadPoolExecutor(max_workers=len(by_device)) as pool:
+        for done in [pool.submit(run_shards, dev, shards) for dev, shards in by_device.items()]:
+            per_shard.update(done.result())
+
+    def gathered(k):
+        # field k of every pair, shard by shard, in global shard order
+        if per_shard[mesh.local_shards[0]][0][k] is None:
+            return None
+        parts = [None] * n
+        for d in mesh.local_shards:
+            parts[d] = torch.from_numpy(np.stack([np.asarray(o[k], np.float32)
+                                                  if np.ndim(o[k]) == 0 else o[k]
+                                                  for o in per_shard[d]]))
+        return torch.cat([p.cpu() for p in gather_shards(mesh, parts)]).numpy()[:B]
+
+    return tuple(gathered(k) for k in range(5))
 
 
 class GroupRegistration:
@@ -224,10 +282,15 @@ class GroupRegistration:
     def launch(self, verbose: bool = True, batch_pairs: int = 1, mesh=None):
         """Register every remaining pair as a three-stage pipeline: threaded
         NIfTI prefetch -> the pair on the device -> threaded artifact
-        writes. ``batch_pairs`` is accepted and pairs run one by one;
-        ``mesh`` is not ported."""
+        writes. Without ``mesh`` pairs run one by one (``batch_pairs`` is
+        accepted); with it each chunk of ``batch_pairs`` same-geometry
+        pairs goes through ``register_pairs_mesh`` (``batch_pairs`` should
+        be at least the mesh size to keep every shard busy)."""
+        if self.warm_start and mesh is not None:
+            raise ValueError("warm_start is a single-chip serial schedule (anchor row -> warm "
+                             "rows); drop --svf-warm-start to batch/shard pairs")
         if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+            return self._launch_mesh(max(1, batch_pairs), mesh, verbose=verbose)
         if self.warm_start:
             if batch_pairs > 1:
                 raise ValueError("warm_start is a serial schedule (anchor row -> warm "
@@ -276,6 +339,60 @@ class GroupRegistration:
             # launch() returns only when every artifact is written
             for f in writes:
                 f.result()
+
+    def _launch_mesh(self, batch_pairs: int, mesh, verbose: bool = True):
+        """Same-geometry chunks of ``batch_pairs`` through
+        ``register_pairs_mesh``, with the one-by-one launch's prefetch,
+        threaded writes and artifacts. Across processes every process
+        writes only its own shards' pairs, then waits for the others."""
+        barrier(mesh)  # every process sees the same pairs to do
+        buckets, n_skip = {}, 0
+        for s, t in self.tasks:
+            if self._pair_done(self._pair_paths(s[0], t[0])):
+                n_skip += 1
+                continue
+            f_hdr = nifti.get_nifti_header(t[1])
+            m_hdr = nifti.get_nifti_header(s[1])
+            key = (tuple(f_hdr.shape[:3]), tuple(m_hdr.shape[:3]),
+                   tuple(round(abs(z), 4) for z in f_hdr.zooms[:3]),
+                   tuple(round(abs(z), 4) for z in m_hdr.zooms[:3]))
+            buckets.setdefault(key, []).append((s, t))
+        if verbose and n_skip:
+            print("%d pair(s) already done, skipped" % n_skip, flush=True)
+        chunks = [(pairs[i:i + batch_pairs], f_shape, f_sp, m_sp)
+                  for (f_shape, _, f_sp, m_sp), pairs in buckets.items()
+                  for i in range(0, len(pairs), batch_pairs)]
+
+        def load(chunk):
+            return (np.stack([nifti.load_nifti_simple(t[1]) for _, t in chunk]).astype(np.float16),
+                    np.stack([nifti.load_nifti_simple(s[1]) for s, _ in chunk]).astype(np.float16))
+
+        done, total, writes = 0, sum(len(c[0]) for c in chunks), []
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            pending = pool.submit(load, chunks[0][0]) if chunks else None
+            for ci, (chunk, f_shape, f_sp, m_sp) in enumerate(chunks):
+                fixed, moving = pending.result()
+                if ci + 1 < len(chunks):
+                    pending = pool.submit(load, chunks[ci + 1][0])
+                done += len(chunk)
+                if verbose:
+                    print("[%d/%d] registering %s"
+                          % (done, total, [pair_name(s[0], t[0]) for s, t in chunk]), flush=True)
+                acfg, scfg = self._pair_cfgs(f_shape)
+                outs = register_pairs_mesh(fixed, moving, f_sp, m_sp, mesh, affine_cfg=acfg,
+                                           svf_cfg=scfg, deformable=self.deformable)
+                rows = -(-len(chunk) // mesh.size)
+                for j, (s, t) in enumerate(chunk):
+                    if j // rows not in mesh.local_shards:
+                        continue  # another process's pair
+                    outs_j = tuple(None if o is None else o[j] for o in outs)
+                    writes.append(pool.submit(self._write_pair, self._pair_paths(s[0], t[0]),
+                                              nifti.get_nifti_header(t[1]), f_sp, m_sp,
+                                              f_shape, *outs_j))
+                writes = _reap(writes)
+            for f in writes:
+                f.result()
+        barrier(mesh)
 
     def _launch_warm(self, verbose: bool = True):
         """The anchor source's row and the source -> anchor auxiliary pairs

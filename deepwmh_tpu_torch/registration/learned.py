@@ -14,8 +14,15 @@ initial weights are flax's distributions from a torch generator seeded with
 ``rng_seed`` (flax's own draws cannot be replayed: load them with
 ``load_flax_params`` to start from a JAX model). The winsorized cohort stays
 on the device while it fits the budget (2 GiB, or
-``DEEPWMH_REG_COHORT_HBM_BYTES``), else pairs are uploaded per step. The
-multi-device (mesh) training is not ported.
+``DEEPWMH_REG_COHORT_HBM_BYTES``), else pairs are uploaded per step.
+
+``train(mesh=)`` is data parallel, as JAX's over its 'dp' axis: shard d
+takes a contiguous block of each step's pair batch on its own replica of
+the network; the loss is the mean over pairs (the mean of the shards'
+means), the shards' gradients are psum'd in shard order, Adam runs on the
+home shard and the other replicas copy its parameters. The resident cohort
+goes once to each distinct device; on the host route each shard's rows
+go to its own device.
 """
 
 from __future__ import annotations
@@ -29,16 +36,13 @@ import torch.nn.functional as F
 
 from deepwmh_tpu_torch.device import resolve_device
 from deepwmh_tpu_torch.ops.warp import displacement_warp
+from deepwmh_tpu_torch.parallel.mesh import copy_params, psum, psum_grads, replicate, to_device
 from deepwmh_tpu_torch.registration.similarity import grad_sq, lncc, winsorize_rescale
 from deepwmh_tpu_torch.registration.svf import scaling_and_squaring
 from deepwmh_tpu_torch.unet import checkpoint as ckpt
 from deepwmh_tpu_torch.unet.model import UNet3D, init_weights
 from deepwmh_tpu_torch.unet.plan import Plan
 from deepwmh_tpu_torch.utils.adam import Adam
-
-MESH_NOT_PORTED = ("multi-device training of the registration network (mesh) is not "
-                   "ported to the GPU package yet (ROADMAP A13, second half)")
-
 
 @dataclass
 class LearnedRegConfig:
@@ -99,14 +103,15 @@ class LearnedRegistration:
 
     # ------------------------------------------------------------------ #
 
-    def _velocity(self, fixed, moving) -> torch.Tensor:
-        """[B,D,H,W] pairs -> velocities [B,3,D,H,W]."""
+    def _velocity(self, fixed, moving, model=None) -> torch.Tensor:
+        """[B,D,H,W] pairs -> velocities [B,3,D,H,W] (``model``: a mesh
+        shard's replica; ``self.model`` by default)."""
         D, H, W = self.grid_shape
         pads = []
         for p, s in zip(reversed(self.pad_shape), reversed(self.grid_shape)):
             pads += [0, p - s]
         x = F.pad(torch.stack([fixed, moving], dim=1), pads)
-        out = self.model(x)  # [B, 3, pad D, H, W], f32
+        out = (model or self.model)(x)  # [B, 3, pad D, H, W], f32
         return (torch.tanh(out.float()) * self.cfg.velocity_scale)[:, :, :D, :H, :W]
 
     def _predict(self, fixed, moving) -> torch.Tensor:
@@ -120,9 +125,9 @@ class LearnedRegistration:
         finally:
             set_fused_norm(self.model, False)
 
-    def _loss(self, fixed, moving) -> torch.Tensor:
+    def _loss(self, fixed, moving, model=None) -> torch.Tensor:
         """Mean loss over a pair batch [B,D,H,W]."""
-        v = self._velocity(fixed, moving)
+        v = self._velocity(fixed, moving, model)
         losses = []
         for b in range(v.shape[0]):
             disp = scaling_and_squaring(v[b], self.cfg.int_steps)
@@ -139,16 +144,54 @@ class LearnedRegistration:
         opt.step([torch.zeros_like(p) if g is None else g for p, g in zip(opt.params, grads)])
         return loss.detach()
 
+    def replicas(self, mesh) -> list:
+        """One network a local shard of ``mesh`` (``None`` for another
+        process's), the home shard's being ``self.model``."""
+        if mesh.home != self.device:
+            raise ValueError("the network is on %s, the mesh's home shard on %s"
+                             % (self.device, mesh.home))
+        return replicate(mesh, self.model)
+
+    def mesh_loss_grads(self, mesh, replicas, fixed, moving):
+        """The mean loss over every shard's pairs and the gradient of every
+        parameter (psum'd in shard order, on the home shard) from
+        per-shard pair blocks."""
+        n = mesh.size
+        losses, grads = [None] * n, [None] * n
+        for d in mesh.local_shards:
+            loss = self._loss(fixed[d], moving[d], replicas[d]) / n
+            grads[d] = torch.autograd.grad(loss, list(replicas[d].parameters()),
+                                           allow_unused=True)
+            losses[d] = loss.detach().reshape(1)
+        return psum(mesh, losses)[0], psum_grads(mesh, grads, list(self.model.parameters()))
+
+    def mesh_train_step(self, opt: Adam, mesh, replicas, fixed, moving) -> torch.Tensor:
+        """One data-parallel Adam step (per-shard pair blocks); every
+        replica holds the home network's parameters after it."""
+        loss, grads = self.mesh_loss_grads(mesh, replicas, fixed, moving)
+        opt.step(grads)
+        copy_params(replicas, opt.params)
+        return loss
+
     # ------------------------------------------------------------------ #
 
     def train(self, volumes, rng_seed: int = 0, verbose: bool = True, mesh=None) -> float:
         """volumes: list of [D,H,W] arrays on the common grid (affine
         aligned). ``cfg.steps`` Adam steps on random ordered pair batches;
-        returns the mean loss of the last 20 steps."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        returns the mean loss of the last 20 steps. ``mesh``: data-parallel
+        steps over its shards (``batch_pairs`` of 1 is raised to the mesh
+        size; any other must divide by it)."""
         cfg = self.cfg
         B = max(int(cfg.batch_pairs), 1)
+        if mesh is not None:
+            if B == 1 and mesh.size > 1:
+                B = mesh.size
+                if verbose:
+                    print("regnet: batch_pairs 1 -> %d (one pair per mesh device)" % B,
+                          flush=True)
+            elif B % mesh.size:
+                raise ValueError("batch_pairs (%d) must divide by the mesh size (%d)"
+                                 % (B, mesh.size))
         dev = self.device
         cohort_bytes = 4 * sum(int(np.prod(np.shape(v))) for v in volumes)
         max_resident = int(os.environ.get("DEEPWMH_REG_COHORT_HBM_BYTES", 2 << 30))
@@ -160,14 +203,19 @@ class LearnedRegistration:
         for v in volumes:
             w = winsorize_rescale(torch.as_tensor(np.asarray(v, np.float32)).to(dev))
             wins.append(w if resident else w.cpu())
+        # resident: the cohort once on every distinct device of the shards
+        shard_devs = [dev] if mesh is None else [mesh.devices[d] for d in mesh.local_shards]
+        cohort = {d: ([to_device(w, d) for w in wins] if resident else wins) for d in shard_devs}
 
-        def gather(ia, ib):
+        def gather(ia, ib, to):
             # resident: indexing on the device, no transfer; else one upload
-            return (torch.stack([wins[int(i)] for i in ia]).to(dev),
-                    torch.stack([wins[int(j)] for j in ib]).to(dev))
+            vols = cohort[to]
+            return (torch.stack([vols[int(i)] for i in ia]).to(to),
+                    torch.stack([vols[int(j)] for j in ib]).to(to))
 
         init_weights(self.model, torch.Generator().manual_seed(rng_seed))
         set_fused_norm(self.model, False)
+        reps = None if mesh is None else self.replicas(mesh)
         opt = Adam(list(self.model.parameters()), cfg.lr)
         n_vols = len(volumes)
         np_rng = np.random.RandomState(rng_seed)
@@ -175,8 +223,15 @@ class LearnedRegistration:
         for step in range(cfg.steps):
             idx = np_rng.randint(0, n_vols, size=(B, 2))
             idx[:, 1] = np.where(idx[:, 0] == idx[:, 1], (idx[:, 1] + 1) % n_vols, idx[:, 1])
-            fixed, moving = gather(idx[:, 0], idx[:, 1])
-            losses.append(self.train_step(opt, fixed, moving))
+            if mesh is None:
+                losses.append(self.train_step(opt, *gather(idx[:, 0], idx[:, 1], dev)))
+            else:
+                rows = B // mesh.size
+                fixed, moving = [None] * mesh.size, [None] * mesh.size
+                for d in mesh.local_shards:
+                    block = idx[d * rows:(d + 1) * rows]
+                    fixed[d], moving[d] = gather(block[:, 0], block[:, 1], mesh.devices[d])
+                losses.append(self.mesh_train_step(opt, mesh, reps, fixed, moving))
             if verbose and (step + 1) % max(cfg.steps // 10, 1) == 0:
                 print("regnet step %d/%d loss %.4f"
                       % (step + 1, cfg.steps, float(torch.stack(losses[-20:]).mean())),

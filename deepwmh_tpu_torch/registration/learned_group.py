@@ -28,6 +28,7 @@ from deepwmh_tpu_torch.core import nifti
 from deepwmh_tpu_torch.core.artifacts import atomic_write_json, join_path, mkdir
 from deepwmh_tpu_torch.device import resolve_device
 from deepwmh_tpu_torch.ops.warp import identity_grid, sample_channels
+from deepwmh_tpu_torch.parallel.mesh import barrier
 from deepwmh_tpu_torch.registration.affine import (
     AffineConfig,
     apply_affine,
@@ -35,11 +36,7 @@ from deepwmh_tpu_torch.registration.affine import (
     spacing_tensor,
 )
 from deepwmh_tpu_torch.registration.group import pair_name
-from deepwmh_tpu_torch.registration.learned import (
-    MESH_NOT_PORTED,
-    LearnedRegConfig,
-    LearnedRegistration,
-)
+from deepwmh_tpu_torch.registration.learned import LearnedRegConfig, LearnedRegistration
 from deepwmh_tpu_torch.registration.svf import apply_affine_svf
 from deepwmh_tpu_torch.registration.template import build_affine_template
 
@@ -92,17 +89,18 @@ def _disp_to_target_grid(disp_T, M_t, sp_T, sp_t, t_shape, device=None) -> np.nd
 
 class LearnedGroupRegistration:
     """Amortised all-pairs registration: one network forward per pair.
-    ``device``: CUDA unless the CPU is asked for; ``mesh`` is not ported
-    (ROADMAP A13, second half)."""
+    ``device``: CUDA unless the CPU is asked for (with ``mesh``, the mesh's
+    home shard's by default). ``mesh``: the network trains data parallel
+    over it (``LearnedRegistration.train(mesh=)``); the template and the
+    forward passes stay on one device, as in the JAX package."""
 
     def __init__(self, sources, targets, output_folder, reg_cfg: LearnedRegConfig = None,
                  template_cfg: AffineConfig = None, template_spacing=(2.0, 2.0, 2.0),
                  template_iterations: int = 2, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self.sources = list(sources)
         self.targets = list(targets)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.home if device is None and mesh is not None else device)
         self.output_folder = mkdir(output_folder)
         self.reg_cfg = reg_cfg or LearnedRegConfig()
         self.template_cfg = template_cfg or AffineConfig(shrinks=(4, 2), iters=(100, 50))
@@ -150,10 +148,14 @@ class LearnedGroupRegistration:
         if verbose:
             print("training registration network...", flush=True)
         reg = LearnedRegistration(grid_shape, self.reg_cfg, device=dev)
-        reg.train(list(aligned.values()), verbose=verbose)
+        reg.train(list(aligned.values()), verbose=verbose, mesh=self.mesh)
         self.reg = reg
 
-        # 4) one forward pass per pair, GroupRegistration's artifacts
+        # 4) one forward pass per pair, GroupRegistration's artifacts (across
+        # processes rank 0 registers and writes them; the others wait)
+        if self.mesh is not None and not self.mesh.writer:
+            barrier(self.mesh)
+            return
         t_hdrs = {name: nifti.get_nifti_header(path) for name, path in self.targets}
         spT = spacing_tensor(sp_T, dev)
 
@@ -194,3 +196,5 @@ class LearnedGroupRegistration:
                     "deformable": True,
                     "warp_kept": True,
                 }, join_path(pair_dir, "affine.json"))
+        if self.mesh is not None:
+            barrier(self.mesh)

@@ -4,9 +4,16 @@ supervision (the port of ``deepwmh_tpu.unet.losses``).
 The JAX package reduces [N,D,H,W,C] logits over axes (0,1,2,3); the port's
 logits are torch's [N,C,D,H,W], so the class axis is 1 and the voxel axes
 are (0,2,3,4). Targets are integer [N,D,H,W].
+
+A data-parallel step needs the loss of the whole batch, not the mean of
+the shards' losses: batch Dice is a ratio of sums over the batch. The
+``*_parts`` functions give a shard's sums before any ratio, and the
+``*_from_parts`` functions the loss from those sums added over the shards.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -72,6 +79,67 @@ def deep_supervision_loss(outputs, target, pool_kernels, batch_dice: bool = True
         if i < len(pool_kernels):
             stride = [s * int(k) for s, k in zip(stride, pool_kernels[i])]
     return total
+
+
+def ce_dice_parts(logits, target) -> torch.Tensor:
+    """The sums of one shard's ``ce_dice_loss`` before any ratio, f32
+    [1 + 2C]: the cross-entropy sum over its voxels, then the Dice
+    intersection and denominator of every class over its batch rows."""
+    logp = torch.log_softmax(logits.float(), dim=1)
+    onehot = _onehot(target, logits.shape[1])
+    ce_sum = -torch.where(onehot > 0, logp, 0.0).sum()
+    probs = torch.softmax(logits.float(), dim=1)
+    axes = (0, 2, 3, 4)
+    inter = (probs * onehot).sum(axes)
+    denom = probs.sum(axes) + onehot.sum(axes)
+    return torch.cat([ce_sum.reshape(1), inter, denom])
+
+
+def ce_dice_from_parts(total, n_voxels: int) -> torch.Tensor:
+    """``ce_dice_loss`` (batch Dice) of the whole batch from the shards'
+    ``ce_dice_parts`` summed; ``n_voxels`` counts the batch's voxels."""
+    C = (total.shape[0] - 1) // 2
+    inter, denom = total[1:1 + C], total[1 + C:]
+    dice = (2 * inter + SMOOTH) / (denom + SMOOTH)
+    return total[0] / n_voxels + (1.0 - dice[1:].mean())
+
+
+def deep_supervision_parts(outputs, target, pool_kernels) -> torch.Tensor:
+    """One shard's ``ce_dice_parts`` of every level with a weight,
+    concatenated: what a data-parallel step sums over the shards."""
+    parts = []
+    stride = [1, 1, 1]
+    for i, (out, w) in enumerate(zip(outputs, ds_weights(len(outputs)))):
+        if w > 0:
+            parts.append(ce_dice_parts(out, downsample_target(target, stride)))
+        if i < len(pool_kernels):
+            stride = [s * int(k) for s, k in zip(stride, pool_kernels[i])]
+    return torch.cat(parts)
+
+
+def deep_supervision_loss_from_parts(total, level_shapes, batch: int):
+    """``deep_supervision_loss`` of a batch of ``batch`` rows from its
+    shards' ``deep_supervision_parts`` summed; ``level_shapes``: the
+    spatial shape of every level's output, highest resolution first."""
+    weighted = [(shape, w) for shape, w in zip(level_shapes, ds_weights(len(level_shapes)))
+                if w > 0]
+    n = total.shape[0] // len(weighted)  # 1 + 2C a level
+    loss = 0.0
+    for i, (shape, w) in enumerate(weighted):
+        loss = loss + w * ce_dice_from_parts(total[i * n:(i + 1) * n],
+                                             batch * math.prod(int(s) for s in shape))
+    return loss
+
+
+def hard_dice_parts(pred, target) -> torch.Tensor:
+    """One shard's ``hard_dice`` sums: [intersection, prediction, target]."""
+    p = (pred > 0.5).float()
+    g = (target > 0.5).float()
+    return torch.stack([(p * g).sum(), p.sum(), g.sum()])
+
+
+def hard_dice_from_parts(total) -> torch.Tensor:
+    return (2 * total[0] + SMOOTH) / (total[1] + total[2] + SMOOTH)
 
 
 def hard_dice(pred, target) -> torch.Tensor:

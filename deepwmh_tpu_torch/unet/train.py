@@ -19,11 +19,29 @@ the JAX package's layout, the optimizer state as flax stores optax's
 chain, so either package resumes the other's model_latest. The model
 trains with ``fused_norm`` off (K1's kernels have no backward; the JAX
 trainer keeps flax GroupNorm for the same reason) and remat on stages 0-1.
-No mesh: multi-GPU training is not ported (ROADMAP A13, second half).
+
+With ``mesh`` (a ``parallel.mesh.Mesh``) the step is data parallel, as the
+JAX trainer's over its 'dp' axis: shard d takes rows d*B/n .. (d+1)*B/n - 1
+of the batch and runs them on its own replica of the model (one a shard,
+also where shards share a device: a shared module would take every
+shard's gradient). The loss is the whole batch's, not the mean of the
+shards': each shard gives the sums of every level's CE and batch Dice
+(``losses.deep_supervision_parts``), ``psum`` adds them in shard order and
+the loss is formed from the total on the home shard. Its gradient with
+respect to that total goes back to every shard, each shard's backward
+gives its replica's gradient, ``psum`` adds those in shard order, and the
+update runs on the home shard; the other replicas copy its parameters, so
+every replica holds the same bits after a step. The augmentation draws
+every sample's values from the one generator in sample order and applies
+sample i on its shard: the augmented batch is the unsharded one. A batch
+that the mesh size does not divide shards over the first gcd(B, n) shards
+(unsharded at a gcd of 1), with the JAX trainer's log line.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -33,9 +51,30 @@ import torch
 
 from deepwmh_tpu_torch.device import resolve_device
 from deepwmh_tpu_torch.unet import checkpoint as ckpt
-from deepwmh_tpu_torch.unet.augment import AugmentConfig, augment_samples
+from deepwmh_tpu_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    copy_params,
+    psum,
+    psum_grads,
+    replicate,
+    to_device,
+)
+from deepwmh_tpu_torch.unet.augment import (
+    AugmentConfig,
+    apply_augment,
+    augment_samples,
+    draw_augment,
+)
 from deepwmh_tpu_torch.unet.data import SegDataset
-from deepwmh_tpu_torch.unet.losses import deep_supervision_loss, hard_dice
+from deepwmh_tpu_torch.unet.losses import (
+    deep_supervision_loss,
+    deep_supervision_loss_from_parts,
+    deep_supervision_parts,
+    hard_dice,
+    hard_dice_from_parts,
+    hard_dice_parts,
+)
 from deepwmh_tpu_torch.unet.model import UNet3D, init_weights
 from deepwmh_tpu_torch.unet.plan import Plan
 from deepwmh_tpu_torch.utils.logging import SimpleTxtLog, Timer
@@ -73,28 +112,55 @@ def augment_seed(seed: int, start_epoch: int) -> int:
 
 class Trainer:
     def __init__(self, plan: Plan, cfg: TrainConfig, out_dir: str, device=None,
-                 dtype=torch.bfloat16, logger: SimpleTxtLog = None):
-        """``device``: CUDA by default, the CPU only when asked for.
-        ``dtype``: the compute dtype (bf16 as the JAX trainer; f32 for
-        exact comparisons). ``logger``: where the epoch lines go (the
-        pipeline passes its run log), ``training_log.txt`` in ``out_dir``
-        by default."""
+                 dtype=torch.bfloat16, logger: SimpleTxtLog = None, mesh: Mesh = None):
+        """``device``: CUDA by default, the CPU only when asked for; with
+        ``mesh`` its home shard's device (``device``, if given, must be
+        that one). ``dtype``: the compute dtype (bf16 as the JAX trainer;
+        f32 for exact comparisons). ``logger``: where the epoch lines go
+        (the pipeline passes its run log), ``training_log.txt`` in
+        ``out_dir`` by default. ``mesh``: data-parallel steps over its
+        shards (see the module's docstring)."""
         self.plan = plan
         self.cfg = cfg
         self.out_dir = out_dir
-        self.device = resolve_device(device)
         os.makedirs(out_dir, exist_ok=True)
+        self.logger = logger or SimpleTxtLog(os.path.join(out_dir, "training_log.txt"))
+        self.mesh = None
+        self.mesh = mesh = self._fit_mesh(mesh)
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.home:
+                raise ValueError("device %s is not the mesh's home shard's (%s)"
+                                 % (device, mesh.home))
+            device = mesh.home
+        self.device = resolve_device(device)
         self.model = UNet3D(plan, dtype=dtype, fused_norm=False, remat=True).to(
             self.device, memory_format=torch.channels_last_3d)
         self.names = [n for n, _ in self.model.named_parameters()]
         self.params = [p for _, p in self.model.named_parameters()]
         self.trace = [torch.zeros_like(p) for p in self.params]
-        self.logger = logger or SimpleTxtLog(os.path.join(out_dir, "training_log.txt"))
+        # one replica a local shard, the home shard's being self.model
+        self.replicas = None if mesh is None else replicate(mesh, self.model)
         self.total_steps = cfg.epochs * cfg.batches_per_epoch
         self.history = []  # per epoch: {"epoch", "losses", "train_loss", "metric"}
 
+    def _fit_mesh(self, mesh):
+        """The mesh the batch shards over: all of it when its size divides
+        the batch, else the first gcd(B, n) shards, or none at a gcd of 1
+        (the global batch is part of the recipe, as in the JAX trainer)."""
+        if mesh is None or self.cfg.batch_size % mesh.size == 0:
+            return mesh
+        if mesh.spans_processes:
+            raise ValueError("batch %d does not divide by the %d shards of a mesh across "
+                             "processes" % (self.cfg.batch_size, mesh.size))
+        d = math.gcd(self.cfg.batch_size, mesh.size)
+        self.log("batch %d not divisible by mesh size %d: %s"
+                 % (self.cfg.batch_size, mesh.size,
+                    "sharding over %d device(s)" % d if d > 1 else "running unsharded"))
+        return mesh.submesh(d) if d > 1 else None
+
     def log(self, msg: str):
-        self.logger.write(msg)
+        if self.mesh is None or self.mesh.writer:
+            self.logger.write(msg)
         print(msg, flush=True)
 
     def lr_at(self, step: int) -> float:
@@ -110,6 +176,7 @@ class Trainer:
         init_weights(self.model, torch.Generator().manual_seed(seed))
         for t in self.trace:
             t.zero_()
+        self._sync_replicas()
 
     def state_trees(self):
         """(params tree, optimizer state tree) in flax's layout."""
@@ -126,16 +193,62 @@ class Trainer:
             with torch.no_grad():
                 for name, t in zip(self.names, self.trace):
                     t.copy_(trace[name])
+        self._sync_replicas()
+
+    def _sync_replicas(self):
+        """Every other replica takes the home replica's parameters."""
+        if self.mesh is not None:
+            copy_params(self.replicas, self.params)
 
     # -- one step ---------------------------------------------------------
 
     def augment(self, images, labels, gen: torch.Generator):
-        return augment_samples(gen, images, labels, self.cfg.aug)
+        """Per-sample augmentation. On a mesh ``images`` / ``labels`` are
+        per-shard lists (``None`` for another process's shard): every
+        sample's values are drawn in sample order, sample i is augmented on
+        its shard."""
+        if self.mesh is None:
+            return augment_samples(gen, images, labels, self.cfg.aug)
+        local = self.mesh.local_shards
+        rows = images[local[0]].shape[0]
+        shape = tuple(images[local[0]].shape[1:])
+        out_i, out_l = [None] * self.mesh.size, [None] * self.mesh.size
+        for d in range(self.mesh.size):
+            draws = [draw_augment(gen, shape, self.cfg.aug) for _ in range(rows)]
+            if images[d] is None:
+                continue  # another process's rows: their draws only advance gen
+            dev = images[d].device
+            outs = [apply_augment(images[d][r], labels[d][r], dataclasses.replace(
+                dr, noise=to_device(dr.noise, dev))) for r, dr in enumerate(draws)]
+            out_i[d] = torch.stack([o[0] for o in outs])
+            out_l[d] = torch.stack([o[1] for o in outs])
+        return out_i, out_l
 
     def loss(self, images, labels):
         """Deep-supervision loss of [N,D,H,W] images against their labels."""
         outs = self.model(images[:, None], deep_supervision=True)
         return deep_supervision_loss(outs, labels, self.plan.pool_kernels)
+
+    def mesh_loss_grads(self, images, labels):
+        """The whole batch's loss and the gradient of every parameter (on
+        the home shard, psum'd in shard order) from per-shard lists."""
+        mesh = self.mesh
+        parts, level_shapes = [None] * mesh.size, None
+        for d in mesh.local_shards:
+            outs = self.replicas[d](images[d][:, None], deep_supervision=True)
+            parts[d] = deep_supervision_parts(outs, labels[d], self.plan.pool_kernels)
+            level_shapes = [o.shape[2:] for o in outs]
+        total = psum(mesh, [None if p is None else p.detach() for p in parts])
+        total.requires_grad_(True)
+        batch = images[mesh.local_shards[0]].shape[0] * mesh.size
+        loss = deep_supervision_loss_from_parts(total, level_shapes, batch)
+        (g_total,) = torch.autograd.grad(loss, total)
+        grads = [None] * mesh.size
+        for d in mesh.local_shards:
+            grads[d] = torch.autograd.grad(parts[d], list(self.replicas[d].parameters()),
+                                           to_device(g_total, parts[d].device), allow_unused=True)
+        grads = psum_grads(mesh, grads, self.params)
+        return loss.detach(), grads
 
     @torch.no_grad()
     def update(self, grads, lr: float):
@@ -155,6 +268,11 @@ class Trainer:
         (required when it is on)."""
         if self.cfg.augment:
             images, labels = self.augment(images, labels, gen)
+        if self.mesh is not None:
+            loss, grads = self.mesh_loss_grads(images, labels)
+            self.update(grads, lr)
+            self._sync_replicas()
+            return loss
         loss = self.loss(images, labels)
         # the lowest-resolution head has deep-supervision weight 0: a zero
         # gradient, which still takes weight decay and momentum
@@ -165,12 +283,30 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, images, labels):
-        logits = self.model(images[:, None])
-        return hard_dice(logits.argmax(1), labels)
+        """Hard Dice of the batch; on a mesh its sums are psum'd."""
+        if self.mesh is None:
+            logits = self.model(images[:, None])
+            return hard_dice(logits.argmax(1), labels)
+        parts = [None] * self.mesh.size
+        for d in self.mesh.local_shards:
+            logits = self.replicas[d](images[d][:, None])
+            parts[d] = hard_dice_parts(logits.argmax(1), labels[d])
+        return hard_dice_from_parts(psum(self.mesh, parts))
 
     def _to_device(self, images, labels):
-        return (torch.from_numpy(images).to(self.device),
-                torch.from_numpy(labels).to(self.device))
+        """A host batch on the device; on a mesh, shard d's rows on its
+        device (``None`` for another process's shard)."""
+        if self.mesh is None:
+            return (torch.from_numpy(images).to(self.device),
+                    torch.from_numpy(labels).to(self.device))
+        n = self.mesh.size
+        rows = images.shape[0] // n
+        out_i, out_l = [None] * n, [None] * n
+        for d in self.mesh.local_shards:
+            dev = self.mesh.devices[d]
+            out_i[d] = torch.from_numpy(images[d * rows:(d + 1) * rows]).to(dev)
+            out_l[d] = torch.from_numpy(labels[d * rows:(d + 1) * rows]).to(dev)
+        return out_i, out_l
 
     # -- the loop ---------------------------------------------------------
 
@@ -194,6 +330,7 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(
             augment_seed(cfg.seed, start_epoch))
         noval_mode = cfg.noval or val_ds is None or len(val_ds) == 0
+        writer = self.mesh is None or self.mesh.writer
 
         # the next batch is sampled and copied while the step runs; one
         # worker keeps np_rng's draws in the unprefetched order
@@ -227,23 +364,30 @@ class Trainer:
                 meta = {"epoch": epoch + 1, "best_metric": max(best_metric, metric),
                         "train_loss": mean_loss, "val_metric": None if noval_mode else metric}
                 params, opt_state = self.state_trees()
-                ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_LATEST, params, opt_state, meta)
-                if cfg.save_every_epoch:
-                    ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_EPOCH_FMT % (epoch + 1),
-                                         params, meta=meta)
+                # across processes rank 0 writes the shared checkpoints
+                if writer:
+                    ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_LATEST, params, opt_state,
+                                         meta)
+                    if cfg.save_every_epoch:
+                        ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_EPOCH_FMT % (epoch + 1),
+                                             params, meta=meta)
                 if noval_mode:
                     best_metric = metric
-                    ckpt.link_checkpoint(self.out_dir, ckpt.MODEL_LATEST, ckpt.MODEL_BEST)
+                    if writer:
+                        ckpt.link_checkpoint(self.out_dir, ckpt.MODEL_LATEST, ckpt.MODEL_BEST)
                 elif metric > best_metric:
                     best_metric = metric
-                    ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_BEST, params, meta=meta)
+                    if writer:
+                        ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_BEST, params, meta=meta)
                 self.history.append({"epoch": epoch + 1, "losses": losses,
                                      "train_loss": mean_loss, "metric": metric})
                 self.log("epoch %d/%d loss=%.4f metric=%.4f best=%.4f (%.1fs)"
                          % (epoch + 1, cfg.epochs, mean_loss, metric, best_metric,
                             timer.elapsed()))
 
-        if noval_mode or not ckpt.checkpoint_exists(self.out_dir, ckpt.MODEL_BEST):
+        if writer and (noval_mode or not ckpt.checkpoint_exists(self.out_dir, ckpt.MODEL_BEST)):
             ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_BEST, self.state_trees()[0],
                                  meta={"epoch": cfg.epochs, "best_metric": best_metric})
+        if self.mesh is not None:
+            barrier(self.mesh)
         return self.model, best_metric

@@ -7,8 +7,10 @@ against one-case runs, K1 at the learned registration network's shapes
 (C = 8, 16, 32), registration's field gather on the card against the
 CPU, a tiny ``run_train`` on the card launching K1 and K2, the DICOM
 import's native host library built on the card's machine and equal to its
-Python versions, and an 8-shard mesh on one card (the halo-sharded median
-and the flip-sharded sweep bit for bit against the unsharded ones). Every
+Python versions, an 8-shard mesh on one card (the halo-sharded median
+and the flip-sharded sweep bit for bit against the unsharded ones) and a
+2-shard one (a data-parallel step leaving both replicas the same bits,
+``register_pairs_mesh`` bit for bit against one by one). Every
 test here needs a card and skips without one; this
 file imports no JAX, so that it runs where JAX is absent:
 
@@ -304,6 +306,68 @@ def test_mesh_on_one_card_fg_is_unsharded_bit_for_bit(cuda):
     torch.cuda.synchronize()
     assert kernels.instance_norm_stats.launches - before == len(ALL_FLIPS) * (4 * 2 + 2)
     assert torch.equal(got, single.predict_volume(vol))
+
+
+def test_mesh_on_one_card_dp_step_keeps_replicas_equal(cuda, tmp_path):
+    """A data-parallel f32 step (TF32 off) over Mesh([cuda] * 2): both
+    replicas hold the same bits after it, and its loss is the unsharded
+    step's within rtol 1e-5."""
+    import numpy as np
+
+    from deepwmh_tpu_torch.parallel.mesh import Mesh
+    from deepwmh_tpu_torch.unet.train import TrainConfig, Trainer
+
+    rng = np.random.RandomState(0)
+    images = rng.randn(2, 16, 16, 16).astype(np.float32)
+    labels = (images + 0.5 * rng.randn(2, 16, 16, 16) > 1.0).astype(np.int32)
+    cfg = TrainConfig(epochs=1, batches_per_epoch=1, augment=False)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        one = Trainer(_tiny_plan(), cfg, str(tmp_path / "one"), device=cuda,
+                      dtype=torch.float32)
+        one.init_state(0)
+        sharded = Trainer(_tiny_plan(), cfg, str(tmp_path / "mesh"), dtype=torch.float32,
+                          mesh=Mesh([cuda] * 2))
+        sharded.load_state_trees(*one.state_trees())
+        want = float(one.train_step(*one._to_device(images, labels), one.lr_at(0)))
+        got = float(sharded.train_step(*sharded._to_device(images, labels), sharded.lr_at(0)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    a, b = sharded.replicas
+    assert all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
+    assert abs(got - want) <= 1e-5 * abs(want)
+
+
+def test_mesh_on_one_card_register_pairs_is_one_by_one(cuda):
+    """register_pairs_mesh over Mesh([cuda] * 2), three pairs (the padding
+    path): every output bit-equal to _pair_core one by one on the card."""
+    import numpy as np
+
+    from deepwmh_tpu_torch.parallel.mesh import Mesh
+    from deepwmh_tpu_torch.registration.affine import (
+        AffineConfig,
+        feasible_affine_cfg,
+        spacing_tensor,
+    )
+    from deepwmh_tpu_torch.registration.group import _pair_core, _to_host, register_pairs_mesh
+    from deepwmh_tpu_torch.registration.svf import SVFConfig, _feasible_cfg
+
+    shape = (32, 36, 28)
+    rng = np.random.RandomState(1)
+    fixed = (rng.rand(3, *shape) * 100).astype(np.float16)
+    moving = (rng.rand(3, *shape) * 100).astype(np.float16)
+    acfg, scfg = AffineConfig(shrinks=(2,), iters=(20,)), SVFConfig(shrinks=(2,), iters=(5,))
+    sp = spacing_tensor((1.0, 1.0, 1.0), cuda)
+    got = register_pairs_mesh(fixed, moving, (1.0,) * 3, (1.0,) * 3, Mesh([cuda] * 2),
+                              affine_cfg=acfg, svf_cfg=scfg)
+    for i in range(3):
+        want = _to_host(_pair_core(torch.from_numpy(fixed[i]).to(cuda),
+                                   torch.from_numpy(moving[i]).to(cuda), sp, sp,
+                                   feasible_affine_cfg(acfg, shape), _feasible_cfg(scfg, shape),
+                                   True))
+        for k in range(5):
+            assert np.array_equal(got[k][i], np.asarray(want[k], dtype=got[k].dtype)), (i, k)
 
 
 def _learned_stats_shapes():

@@ -36,6 +36,7 @@ from deepwmh_tpu.registration import warm as jwarm
 from deepwmh_tpu_torch.cli import group_register as cli
 from deepwmh_tpu_torch.cli import priors as priors_cli
 from deepwmh_tpu_torch.core import nifti
+from deepwmh_tpu_torch.parallel.mesh import Mesh
 from deepwmh_tpu_torch.registration import affine, group, policy, priors, svf, warm
 from deepwmh_tpu_torch.registration.similarity import lncc, winsorize_rescale
 
@@ -186,13 +187,18 @@ def test_group_cli_refuses_without_card_or_with_mesh(cohort, tmp_path):
             cli.main(argv)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             priors_cli.main(["-a", src, "-l", src, "-i", src, "-o", str(tmp_path / "p")])
-    with pytest.raises(SystemExit, match="A13"):
+        with pytest.raises(RuntimeError, match="no CUDA device for a mesh"):
+            cli.main(argv + ["--mesh"])
+    # --mesh runs (tests/test_torch_port_mesh_run.py); with -g / --device
+    # it is refused, and so is a warm start over a mesh
+    with pytest.raises(SystemExit):
         cli.main(argv + ["--mesh", "--device", "cpu"])
     with pytest.raises(SystemExit):
         cli.main(argv + ["-g", "0", "--device", "cpu"])
-    reg = group.GroupRegistration([("a", src)], [("b", tgt)], str(tmp_path / "g"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        reg.launch(mesh=object())
+    reg = group.GroupRegistration([("a", src), ("a2", src)], [("b", tgt)], str(tmp_path / "g"),
+                                  warm_start=True, device="cpu")
+    with pytest.raises(ValueError, match="warm_start"):
+        reg.launch(mesh=Mesh(["cpu"] * 2))
 
 
 def test_warm_start_matches_jax(cohort, tmp_path):

@@ -12,7 +12,8 @@ the JAX package on the CPU, with JAX's network parameters carried across
   states: Adam's first steps follow the sign of near-zero gradients);
 - ``_lift_core`` / ``_disp_to_target_grid`` within 1e-4 voxel;
 - ``LearnedGroupRegistration`` through the port on a 2x2 cohort: the group
-  artifacts, read and probed by the JAX package, a re-run doing nothing.
+  artifacts, read and probed by the JAX package, a re-run doing nothing;
+  over a 2-shard CPU mesh, the network trained data parallel.
 """
 
 import json
@@ -198,5 +199,19 @@ def test_learned_group_registration_artifacts(tmp_path):
     stamp = os.path.getmtime(os.path.join(out, "src1_to_tgt1", "affine.json"))
     learned_group.LearnedGroupRegistration(srcs, tgts, out, **kw).launch(verbose=False)
     assert os.path.getmtime(os.path.join(out, "src1_to_tgt1", "affine.json")) == stamp
-    with pytest.raises(NotImplementedError, match="A13"):
-        learned_group.LearnedGroupRegistration(srcs, tgts, out, mesh=object(), device="cpu")
+    # over a 2-shard CPU mesh: the network trains data parallel (the mesh
+    # reaches train()), the pairs are complete
+    from deepwmh_tpu_torch.parallel.mesh import Mesh
+
+    meshes, train = [], learned.LearnedRegistration.train
+    mesh = Mesh(["cpu"] * 2)
+    out_mesh = str(tmp_path / "out_mesh")
+    try:
+        learned.LearnedRegistration.train = (
+            lambda self, *a, **k: meshes.append(k.get("mesh")) or train(self, *a, **k))
+        lg_mesh = learned_group.LearnedGroupRegistration(srcs, tgts, out_mesh, mesh=mesh, **kw)
+        lg_mesh.launch(verbose=False)
+    finally:
+        learned.LearnedRegistration.train = train
+    assert meshes == [mesh]
+    assert all(lg_mesh.pair_complete(s, t) for s, _ in srcs for t, _ in tgts)

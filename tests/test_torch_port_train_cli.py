@@ -7,8 +7,8 @@ test's floors), the release, the seconds of each step and stage in
 ``stage_stats``, a resume under 60 s; across packages, the
 port's release loads in JAX's ``load_released_model`` and JAX's pipeline
 finds every marker in the port's core folder and trains nothing. The CLI
-exits naming A13 with ``--mesh`` and refuses to run without a card unless
-asked for the CPU. ``run_e2e_accuracy`` and ``label_propagation_quality``
+resumes it over a (CPU) mesh with ``--mesh`` and refuses to run without a
+card unless asked for the CPU. ``run_e2e_accuracy`` and ``label_propagation_quality``
 run as the JAX package's slow tests do; a slow witness runs both packages'
 ``run_train`` up to stage I on one e2e-sized cohort.
 """
@@ -133,11 +133,25 @@ def test_jax_pipeline_resumes_the_ports_core(trained):
     assert _weights(core) == before
 
 
-def test_cli_mesh_exits_naming_a13(trained, capsys):
-    with pytest.raises(SystemExit) as err:
-        train.main(["-s", trained["ref_csv"], "-t", trained["tr_csv"], "-o",
-                    os.path.join(trained["root"], "cli"), "--mesh", "--device", "cpu"])
-    assert "A13" in str(err.value.code)
+def test_cli_mesh_exits_naming_a13(trained, monkeypatch, capsys):
+    """The name is the refusal's this test replaced: --mesh now runs. With
+    make_mesh stood in by a 2-shard CPU mesh the CLI resumes the trained
+    folder over the mesh and trains nothing; --mesh with --device exits."""
+    from deepwmh_tpu_torch.parallel.mesh import Mesh
+
+    argv = ["-s", trained["ref_csv"], "-t", trained["tr_csv"], "-o", trained["out"],
+            "--skip-bfc", "--skip-integrity-check"] + sum(
+        (["--" + k.replace("_", "-"), str(BUDGET[k])] for k in
+         ("stage2_epochs", "stage3_epochs", "batches_per_epoch", "batch_size")), [])
+    with pytest.raises(SystemExit):
+        train.main(argv + ["--mesh", "--device", "cpu"])
+    monkeypatch.setattr(train, "make_mesh", lambda: Mesh(["cpu"] * 2))
+    before = _weights(trained["core"])
+    capsys.readouterr()
+    train.main(argv + ["--mesh"])
+    said = capsys.readouterr().out
+    assert "mesh: 2 device(s) (cpu)" in said and "epoch " not in said
+    assert _weights(trained["core"]) == before
 
 
 def test_cli_refuses_to_run_without_a_card(trained, monkeypatch, capsys):
