@@ -13,11 +13,18 @@ Phases, each printing JSON lines to stdout:
    host-per-call times beside ``torch.var_mean``'s (the two measured in
    turns, medians of five) and the memory bound;
    the apply kernel (normalize + affine + leaky ReLU) bit for bit against
-   the plain chain, with both times and its memory bound;
+   the plain chain, with both times and its memory bound; then both kernels
+   at one narrow width per dtype (fault B0: [1, M, 4] bf16, [1, M, 2] f32
+   at the flagship M) checked the same way and timed beside the wide width
+   of the same M, and the 8-flip flagship sweep with K1 on against the
+   plain norm chain (``experiments/studies/fused_stats_study.measure``);
 3. main_path: ``DeepWMH_predict`` through ``run_predict`` at the flagship plan
    (192x224x192 1 mm FLAIR, 8-flip whole-volume TTA, random weights from a
-   seed) on two cases, with the kernels' launch counts from that run, then a
-   per-stage timing of the same pipeline and a profile of one TTA sweep;
+   seed) on two cases, with the kernels' launch counts from that run (and
+   the NIfTI gzip through the native zlib, none in Python), then a
+   per-stage timing of the same pipeline, a profile of one TTA sweep and a
+   volume's gzip read and writes, native against Python's gzip (the same
+   bytes);
 4. card_vs_cpu: the card (kernel path, f32, no TF32) against the CPU (plain
    path) on a small plan, whole-volume and patch sweeps;
 5. k2: the 3x3x3 median kernel against its plain version (value equality)
@@ -69,6 +76,8 @@ Phases, each printing JSON lines to stdout:
 16. priors: the priors CLI (its synthetic atlas, --quick) on one subject;
 17. reg_card_vs_cpu: one pair at 48x56x48, short schedule, on the card (no
    TF32) against the CPU within the one-pair bars, and the field gather;
+   then fault C6: the pair uploaded in C, Fortran and C order again on the
+   card, the same bits every time;
 18. train_e2e: ``DeepWMH_train`` through ``run_train`` on a phantom cohort
    (``eval/phantom.write_cohort``) at 64x80x64 2 mm, 3 references x 2
    patients (6 svf pairs, auto asserted to resolve to svf), the production
@@ -173,6 +182,11 @@ svf and with the learned registration forced, ``--repeats`` (1) times:
 one line per run (held-out and stage-1 Dice, wall, seconds per
 registration pair), then the means, the run-to-run ranges, the svf -
 learned gap a seed and the policy readings at that shape.
+``python3 chip_smoke.py --crossover svf|learned`` builds the kernels and
+then, instead of the phases, runs the crossover study
+(``experiments/studies/crossover_e2e_study.py``: 12 references x 14
+patients, 168 pairs, that mode forced, seed 0) and prints its held-out
+Dice (fault C1's rule: svf at or above learned at 168 pairs).
 ``python3 chip_smoke.py --convert-evaluate`` builds the kernels and runs
 only the convert_evaluate phase; ``python3 chip_smoke.py --dicom`` builds
 them and runs only dicom_predict and oasis3_prep; ``python3 chip_smoke.py
@@ -525,6 +539,10 @@ def phase_k1(kernels, plan, vol_shape=FLAGSHIP_SHAPE, phase="k1", what="flagship
         calls_per_forward += calls
         del x, x3, mean, var, ref_mean, ref_var, out, want
     check(calls_per_forward == 4 * plan.num_pools + 2, "K1 shape table is off")
+    narrow = None
+    if phase == "k1":
+        narrow = k1_narrow(kernels, int(np.prod(vol_shape)), phase)
+        k1_sweep(plan, vol_shape)
     per = "one %s forward (%d calls)" % (what, calls_per_forward)
     stats_entry = {
         "name": "instance_norm_stats", "route": "cuda",
@@ -538,6 +556,10 @@ def phase_k1(kernels, plan, vol_shape=FLAGSHIP_SHAPE, phase="k1", what="flagship
         "library_ms": total["library_ms"], "library_device_ms": total["library_device_ms"],
         "per": per,
     }
+    if narrow is not None:
+        stats_entry["narrow"] = [{k: r[k] for k in ("shape_nmc", "dtype", "max_abs_err", "ms",
+                                                    "plain_ms", "library_ms", "bound_ms",
+                                                    "wide_shape_nmc", "wide_ms")} for r in narrow]
     act_entry = {
         "name": "instance_norm_act", "route": "cuda",
         "source": "deepwmh_tpu_torch/csrc/instance_norm_act.cu",
@@ -552,7 +574,90 @@ def phase_k1(kernels, plan, vol_shape=FLAGSHIP_SHAPE, phase="k1", what="flagship
         "library_ms": None,
         "per": per,
     }
+    if narrow is not None:
+        act_entry["narrow"] = [{"shape_nmc": r["shape_nmc"], "dtype": r["dtype"],
+                                "ms": r["act_ms"], "plain_ms": r["act_plain_ms"],
+                                "bound_ms": r["act_bound_ms"], "wide_ms": r["wide_act_ms"]}
+                               for r in narrow]
     return stats_entry, act_entry
+
+
+def k1_sweep(plan, vol_shape):
+    """The 8-flip whole-volume sweep with K1 on against the plain norm chain
+    (the same weights): ``fused_stats_study.measure``, the port of the JAX
+    package's fused_stats_study, whose script prints this reading alone."""
+    from deepwmh_tpu_torch.experiments.studies import fused_stats_study
+
+    row = fused_stats_study.measure(plan, vol_shape, DEVICE, repeats=3)
+    # random weights: the two paths round the norm at other places, so this
+    # is a sanity bound, not a parity bar (the per-kernel checks above are)
+    check(np.isfinite(row["max_abs_prob_diff"]) and row["argmax_agreement"] > 0.95,
+          "K1 on / off sweeps disagree: %r" % {k: row[k] for k in ("max_abs_prob_diff",
+                                                                   "argmax_agreement")})
+    emit({"phase": "k1_sweep", **row})
+    return row
+
+
+# K1's narrow widths (fault B0): a base-4 model's first width on a flagship
+# volume in bf16, and half of it in f32, each beside the wide width of the
+# same bytes a row (C = 8 bf16, C = 4 f32) at the same M
+K1_NARROW = (("bfloat16", 4, 8), ("float32", 2, 4))
+
+
+def k1_narrow(kernels, m, phase="k1"):
+    """K1's two kernels at one narrow width per dtype, [1, m, C]: the
+    statistics within 1e-4 of the plain version and the same bits twice,
+    the apply pass bit for bit; times beside the plain version's, the
+    library's, the bound and the wide width's at the same m."""
+    import torch
+
+    stats, act = kernels.instance_norm_stats, kernels.instance_norm_act
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    rows = []
+    for dtype_name, c, wide_c in K1_NARROW:
+        dtype = getattr(torch, dtype_name)
+        x = (torch.randn((1, m, c), generator=gen, device=DEVICE) * 2 + 0.5).to(dtype)
+        wide = (torch.randn((1, m, wide_c), generator=gen, device=DEVICE) * 2 + 0.5).to(dtype)
+        mean, var = stats(x)
+        again = stats(x)
+        ref_mean, ref_var = kernels.instance_norm_stats_reference(x)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(mean, ref_mean, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(var, ref_var, atol=1e-4, rtol=1e-4)
+        check(torch.equal(mean, again[0]) and torch.equal(var, again[1]),
+              "narrow K1 gave other bits on a second call at %s" % ([1, m, c],))
+        mul = torch.rsqrt(var.clamp_min(0.0) + 1e-5)
+        bias = torch.linspace(-0.5, 0.5, c, device=DEVICE)
+        slope = float(torch.tensor(0.01, dtype=dtype))
+        out = act(x, mean, mul, bias, slope)
+        want = kernels.instance_norm_act_reference(x, mean, mul, bias, slope)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), "narrow K1 apply differs from the plain chain at %s"
+              % ([1, m, c],))
+        wmean, wvar = stats(wide)
+        wmul = torch.rsqrt(wvar.clamp_min(0.0) + 1e-5)
+        wbias = torch.linspace(-0.5, 0.5, wide_c, device=DEVICE)
+        b2b = in_turns(cuda_ms, {"kernel": lambda: stats(x), "wide": lambda: stats(wide),
+                                 "library": lambda: torch.var_mean(x, dim=1, correction=0)})
+        act_b2b = in_turns(cuda_ms, {"kernel": lambda: act(x, mean, mul, bias, slope),
+                                     "wide": lambda: act(wide, wmean, wmul, wbias, slope)})
+        nbytes = x.numel() * x.element_size()
+        row = {"phase": phase + "_narrow", "shape_nmc": [1, m, c], "dtype": dtype_name,
+               "wide_shape_nmc": [1, m, wide_c],
+               "max_abs_err": max(float((mean - ref_mean).abs().max()),
+                                  float((var - ref_var).abs().max())),
+               "ms": b2b["kernel"], "wide_ms": b2b["wide"], "library_ms": b2b["library"],
+               "plain_ms": cuda_ms(lambda: kernels.instance_norm_stats_reference(x)),
+               "bound_ms": max((nbytes + 2 * c * 4) / HBM_BYTES_PER_S,
+                               3 * x.numel() / F32_FLOP_PER_S) * 1e3,
+               "act_ms": act_b2b["kernel"], "wide_act_ms": act_b2b["wide"],
+               "act_plain_ms": cuda_ms(
+                   lambda: kernels.instance_norm_act_reference(x, mean, mul, bias, slope)),
+               "act_bound_ms": (2 * nbytes + 3 * c * 4) / HBM_BYTES_PER_S * 1e3}
+        emit(row)
+        rows.append(row)
+        del x, wide, mean, var, again, ref_mean, ref_var, out, want, wmean, wvar
+    return rows
 
 
 def _timed(name, fn, times):
@@ -566,11 +671,46 @@ def _timed(name, fn, times):
     return out
 
 
+def gzip_volume_io(work, flair_path, artifacts, hdr):
+    """A predict volume's gzip work on the host, native zlib against the
+    plain path (Python's gzip, ``native.python_path()``) in turns (native,
+    then plain: one turn each, to keep the script within its time): the
+    input read and the four artifact writes (the N4 output and three masks,
+    level 4 as the pipeline writes them), seconds of each step and their
+    sum; the two paths' files byte for byte equal."""
+    from deepwmh_tpu_torch import native
+    from deepwmh_tpu_torch.core import nifti
+
+    seen = {}
+    for route in ("native", "plain"):
+        ctx = native.python_path() if route == "plain" else contextlib.nullcontext()
+        folder = os.path.join(work, "gzip_" + route)
+        os.makedirs(folder, exist_ok=True)
+        steps = {}
+        with ctx:
+            t0 = time.perf_counter()
+            nifti.load_nifti(flair_path)
+            steps["read_input"] = time.perf_counter() - t0
+            for key in ("pre", "raw", "3mm", "fov"):
+                t0 = time.perf_counter()
+                nifti.save_nifti(artifacts[key], hdr, os.path.join(folder, key + ".nii.gz"))
+                steps["write_" + key] = time.perf_counter() - t0
+        seen[route] = steps
+    for key in ("pre", "raw", "3mm", "fov"):
+        blobs = [open(os.path.join(work, "gzip_" + r, key + ".nii.gz"), "rb").read()
+                 for r in ("native", "plain")]
+        check(blobs[0] == blobs[1], "native and plain gzip wrote other bytes for %s" % key)
+    return {route: {"steps_s": steps, "one_write_s": steps["write_pre"],
+                    "volume_total_s": sum(steps.values())}
+            for route, steps in seen.items()}
+
+
 def phase_main_path(kernels, work, smi):
     """The flagship DeepWMH_predict through run_predict on two cases; the
     kernels' launch counts are those of this run only."""
     import torch
 
+    from deepwmh_tpu_torch import native
     from deepwmh_tpu_torch.cli.predict import run_predict
     from deepwmh_tpu_torch.core import nifti
     from deepwmh_tpu_torch.ops.brain import brain_extract
@@ -596,13 +736,21 @@ def phase_main_path(kernels, work, smi):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.KERNELS.values():
         k.launches = 0
+    native.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_predict(images, cases, pkg, out, make_previews=False, device=DEVICE)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    gzip_calls = {k: native.CALLS[k] for k in ("gzip_inflate", "gzip_deflate")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the NIfTI codec went through zlib in the native library (PARITY C14):
+    # each case's input read, its four artifacts written, none in Python
+    check(gzip_calls["gzip_inflate"] >= len(cases) and gzip_calls["gzip_deflate"] >= 4 * len(cases)
+          and native.PYTHON_CALLS["gzip_inflate"] == native.PYTHON_CALLS["gzip_deflate"] == 0,
+          "predict's gzip did not go through the native library: %r / %r"
+          % (gzip_calls, native.PYTHON_CALLS))
 
     blocks = 4 * plan.num_pools + 2
     expect = len(cases) * len(ALL_FLIPS) * blocks
@@ -656,6 +804,7 @@ def phase_main_path(kernels, work, smi):
     pre_np = _timed("to_host", lambda: pre.cpu().numpy(), io)
     _timed("write_one_artifact", lambda: nifti.save_nifti(
         pre_np, hdr, os.path.join(work, "io_probe.nii.gz")), io)
+    io["gzip"] = gzip_volume_io(work, images[0], first, hdr)
     agree = float((fov.cpu().numpy() == first["fov"]).mean())
     # a rerun of the whole case (phase train_e2e holds N4 and the masks to
     # the same bits)
@@ -2353,6 +2502,15 @@ def phase_reg_card_vs_cpu(work):
         grid = identity_grid(shape)
         want = sample_channels(d, grid + d)
         got = sample_channels(d.to(DEVICE), (grid + d).to(DEVICE)).cpu()
+        # fault C6: a Fortran-ordered upload gives the C-ordered upload's
+        # bits on the card (C, F, then C again: the first-order SVF only, as
+        # the exact polish scatters with float atomics)
+        sp = spacing_tensor((1.0, 1.0, 1.0), DEVICE)
+        lcfg = SVFConfig(shrinks=(4,), iters=(4,), n_squaring=4)
+        layouts = [(order, _to_host(_pair_core(
+            torch.from_numpy(np.asarray(fixed, order=order)).to(DEVICE),
+            torch.from_numpy(np.asarray(moving, order=order)).to(DEVICE), sp, sp, acfg, lcfg,
+            True))) for order in ("C", "F", "C")]
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     card, cpu = outs[DEVICE], outs["cpu"]
@@ -2377,6 +2535,14 @@ def phase_reg_card_vs_cpu(work):
           and row["disp_max_abs_vox"] <= 0.5 and row["warped_max_abs_of_range"] <= 1e-2,
           "registration card vs CPU: %r" % row)
     check(row["sample_channels_max_abs"] <= 1e-5, "sample_channels card vs CPU: %r" % row)
+
+    def same(a, b):
+        return all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
+
+    row["c6_c_order_repeats"] = same(layouts[0][1], layouts[2][1])
+    row["c6_fortran_equals_c"] = same(layouts[0][1], layouts[1][1])
+    check(row["c6_c_order_repeats"] and row["c6_fortran_equals_c"],
+          "a pair's bits depend on its upload's layout on the card: %r" % row)
     emit({"phase": "reg_card_vs_cpu", "shape": list(shape), "tf32": False, **row})
 
 
@@ -3873,6 +4039,9 @@ def main(argv=None) -> int:
     parser.add_argument("--mesh", action="store_true",
                         help="Instead of every phase, only mesh and mesh_train (after the "
                         "build).")
+    parser.add_argument("--crossover", choices=("svf", "learned"),
+                        help="Instead of the phases, the 12 x 14 = 168-pair crossover study "
+                        "with this registration mode forced (about 33 min for svf).")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3903,6 +4072,18 @@ def main(argv=None) -> int:
     smi = run(phase_device, kernels)
     if args.e2e_dice:
         e2e_dice(smi, args.repeats)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if args.crossover:
+        from deepwmh_tpu_torch.experiments.studies import crossover_e2e_study
+
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke-crossover-", dir=HERE) as work:
+            row = crossover_e2e_study.run(args.crossover, DEVICE, work=work)
+        check(0.0 <= row["heldout_dice"] <= 1.0 and row["n_pairs"] == 168,
+              "crossover: %r" % row)
+        emit({"phase": "crossover", "nvidia_smi": smi, **row})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})

@@ -1215,7 +1215,7 @@ def _decode_codestream(data: bytes):
                             band.orient, blk.passes, msb_plane, segsym,
                         )
                     if vals is None:
-                        native.PYTHON_CALLS["j2k_decode_block"] += 1
+                        native.count("j2k_decode_block", python=True)
                         dec = _BlockDecoder(
                             blk.w, blk.h, band.orient,
                             vsc=bool(style & 0x08),

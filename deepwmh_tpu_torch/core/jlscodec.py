@@ -583,7 +583,7 @@ def decode(data: bytes):
                 p.t1, p.t2, p.t3, p.reset, p.qbpp, p.limit,
             )
             if out is None:
-                native.PYTHON_CALLS["jls_decode_scan"] += 1
+                native.count("jls_decode_scan", python=True)
                 br = _JlsBitReader(data[i:])
                 out = _codec(None, br, p, decode=True)
             dt = np.uint16 if precision > 8 else np.uint8

@@ -466,7 +466,7 @@ def _decode_lossless(st):
 def _decode_diffs_py(data: bytes, lut_np: np.ndarray, n: int) -> np.ndarray:
     """Serial Huffman pass in Python: the plain version of
     native/jpegl.cpp's ``jpegl_decode_diffs``."""
-    native.PYTHON_CALLS["jpegl_decode_diffs"] += 1
+    native.count("jpegl_decode_diffs", python=True)
     lut = lut_np.tolist()
     br = _BitReader(data)
     diffs = np.empty(n, np.int64)
@@ -520,7 +520,7 @@ def _decode_lossless_1comp_fast(st):
 def _reconstruct_py(d, psv, default):
     """Sequential predictor reconstruction in Python: the plain version of
     native/jpegl.cpp's ``jpegl_reconstruct``."""
-    native.PYTHON_CALLS["jpegl_reconstruct"] += 1
+    native.count("jpegl_reconstruct", python=True)
     h, w = d.shape
     out = np.zeros((h, w), np.int64)
     for y in range(h):

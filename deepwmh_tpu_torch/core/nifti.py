@@ -2,8 +2,12 @@
 
 The port's own copy of ``deepwmh_tpu.core.nifti`` (the port imports nothing
 of the JAX package): single-file ``.nii`` / ``.nii.gz`` volumes,
-scl_slope/scl_inter scaling, qform/sform affines and pixdim extraction. Compression is Python's ``gzip`` with ``mtime=0``, so the
-same volume always writes the same bytes.
+scl_slope/scl_inter scaling, qform/sform affines and pixdim extraction.
+``.nii.gz`` reads and writes go through zlib in the port's native host
+library (``native.gzip_inflate_host`` / ``gzip_deflate_host``, the JAX
+package's ``cc3d.cpp``): the same volume always writes the same bytes, the
+JAX package's bytes. Inside ``native.python_path()`` Python's ``gzip``
+(``mtime=0``) does the same work, the plain version.
 
 Only the NIfTI-1 single-file format is supported (magic ``n+1``), which is
 what every tool in the WMH pipeline consumes and produces.
@@ -18,6 +22,8 @@ import struct
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from deepwmh_tpu_torch import native
 
 # NIfTI-1 datatype codes -> numpy dtypes
 _DTYPES = {
@@ -227,9 +233,18 @@ def _serialize_header(hdr: NiftiHeader, datatype: int) -> bytes:
 
 
 def _read_raw(path: str) -> bytes:
-    """Read a possibly-gzipped file."""
-    with _open_maybe_gz(path, "rb") as f:
-        return f.read()
+    """Read a possibly-gzipped file: zlib through the native library, whose
+    first buffer is the gzip trailer's size; Python's ``gzip`` only inside
+    ``native.python_path()``."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    if not str(path).endswith(".gz"):
+        return blob
+    out = native.gzip_inflate_host(blob)
+    if out is None:
+        native.count("gzip_inflate", python=True)
+        out = gzip.decompress(blob)
+    return out
 
 
 def load_nifti(path, return_type="float32"):
@@ -274,9 +289,13 @@ def _write_payload(payload, path, level=4):
     later resume."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     if str(path).endswith(".gz"):
-        # mtime=0: identical data -> identical bytes, so content hashes and
-        # re-written duplicate artifacts are deterministic
-        blob = gzip.compress(payload, compresslevel=level, mtime=0)
+        # zlib with mtime 0 on either path: identical data -> identical
+        # bytes, so content hashes and re-written duplicate artifacts are
+        # deterministic
+        blob = native.gzip_deflate_host(payload, level=level)
+        if blob is None:
+            native.count("gzip_deflate", python=True)
+            blob = gzip.compress(payload, compresslevel=level, mtime=0)
     else:
         blob = payload
     tmp = "%s.tmp-%d" % (path, os.getpid())

@@ -28,6 +28,13 @@
 // V channels (16 bytes), so it loads its V means, multipliers and biases
 // once per sample and then streams rows with kUnroll independent 16-byte
 // loads in flight, storing 16 bytes per row.
+//
+// Narrow widths (C < V, V % C == 0) walk a sample's flat [M * C] run as
+// 16-byte vectors, lane j holding channel (head + j) % C (head: the elements
+// before the sample's first 16-byte boundary), as the statistics kernel
+// does; the head and the elements after the last whole vector (at most
+// V - 1 each) go one by one through the same rounded steps, on thread 0 of
+// block 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +73,12 @@ struct Io16<__nv_bfloat16> {
     }
     return raw;
   }
+  __device__ static float load1(const __nv_bfloat16* p) { return __bfloat162float(p[0]); }
+  __device__ static void act_store1(__nv_bfloat16* p, float v, float slope) {
+    float a = __bfloat162float(__float2bfloat16_rn(v));
+    a = a > 0.f ? a : __fmul_rn(a, slope);
+    p[0] = __float2bfloat16_rn(a);
+  }
 };
 
 template <>
@@ -84,9 +97,18 @@ struct Io16<float> {
     return make_uint4(__float_as_uint(a[0]), __float_as_uint(a[1]),
                       __float_as_uint(a[2]), __float_as_uint(a[3]));
   }
+  __device__ static float load1(const float* p) { return __ldg(p); }
+  __device__ static void act_store1(float* p, float v, float slope) {
+    p[0] = v > 0.f ? v : __fmul_rn(v, slope);
+  }
 };
 
-// grid (G, N), block rows * (C / V) threads
+// Threads of a block of `rows` rows: C / V a row, one on the narrow path.
+__host__ __device__ inline int block_threads(int rows, int C, int V) {
+  return C < V ? rows : rows * (C / V);
+}
+
+// grid (G, N), block block_threads(rows, C, V) threads
 template <typename T>
 __global__ void inorm_act_kernel(const T* __restrict__ x, T* __restrict__ out,
                                  const float* __restrict__ mean,
@@ -95,24 +117,51 @@ __global__ void inorm_act_kernel(const T* __restrict__ x, T* __restrict__ out,
                                  int bias_n_stride, long long M, int C,
                                  int rows, float slope) {
   constexpr int V = Io16<T>::kWidth;
-  const int groups = C / V;
+  const bool narrow = C < V;
+  const int groups = narrow ? 1 : C / V;
   const int n = blockIdx.y;
   const int cg = threadIdx.x % groups;
   const int r = threadIdx.x / groups;
+  const float* mean_n = mean + (size_t)n * C;
+  const float* mul_n = mul + (size_t)n * C;
+  const float* bias_n = bias + (size_t)n * bias_n_stride;
+
+  // the wide path walks M rows; the narrow path splits the sample's flat
+  // run into head elements before its first 16-byte boundary, `count`
+  // whole vectors, then the tail
+  const long long L = M * C;
+  long long head = narrow ? (V - (long long)n * L % V) % V : 0;
+  if (head > L) head = L;
+  const long long count = narrow ? (L - head) / V : M;
 
   float mu[V], w[V], b[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    const int c = cg * V + i;
-    mu[i] = __ldg(mean + (size_t)n * C + c);
-    w[i] = __ldg(mul + (size_t)n * C + c);
-    b[i] = __ldg(bias + (size_t)n * bias_n_stride + c);
+    const int c = narrow ? (int)((head + i) % C) : cg * V + i;
+    mu[i] = __ldg(mean_n + c);
+    w[i] = __ldg(mul_n + c);
+    b[i] = __ldg(bias_n + c);
   }
-  const size_t offset = (size_t)n * (size_t)M * C + (size_t)cg * V;
+  const size_t offset =
+      (size_t)n * (size_t)M * C + (narrow ? (size_t)head : (size_t)cg * V);
   const uint4* src = reinterpret_cast<const uint4*>(x + offset);
   uint4* dst = reinterpret_cast<uint4*>(out + offset);
-  const size_t row_vecs = (size_t)C / V;
+  const size_t row_vecs = narrow ? 1 : (size_t)C / V;
   const long long step = (long long)gridDim.x * rows;
+
+  if (narrow && blockIdx.x == 0 && r == 0) {
+    const T* xs = x + (size_t)n * (size_t)M * C;
+    T* os = out + (size_t)n * (size_t)M * C;
+    auto one = [&](long long e) {
+      const int c = (int)(e % C);
+      const float v = __fadd_rn(
+          __fmul_rn(__fsub_rn(Io16<T>::load1(xs + e), __ldg(mean_n + c)), __ldg(mul_n + c)),
+          __ldg(bias_n + c));
+      Io16<T>::act_store1(os + e, v, slope);
+    };
+    for (long long e = 0; e < head; ++e) one(e);
+    for (long long e = head + count * V; e < L; ++e) one(e);
+  }
 
   auto apply = [&](const uint4& raw) {
     float v[V];
@@ -124,7 +173,7 @@ __global__ void inorm_act_kernel(const T* __restrict__ x, T* __restrict__ out,
   };
 
   long long m = (long long)blockIdx.x * rows + r;
-  for (; m + (kUnroll - 1) * step < M; m += kUnroll * step) {
+  for (; m + (kUnroll - 1) * step < count; m += kUnroll * step) {
     uint4 raw[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
@@ -133,7 +182,7 @@ __global__ void inorm_act_kernel(const T* __restrict__ x, T* __restrict__ out,
     for (int u = 0; u < kUnroll; ++u)
       dst[(size_t)(m + u * step) * row_vecs] = apply(raw[u]);
   }
-  for (; m < M; m += step)
+  for (; m < count; m += step)
     dst[(size_t)m * row_vecs] = apply(__ldg(src + (size_t)m * row_vecs));
 }
 
@@ -141,8 +190,8 @@ template <typename T>
 int launch(const void* x, void* out, const void* mean, const void* mul,
            const void* bias, int bias_n_stride, int N, long long M, int C,
            int rows, int G, float slope, cudaStream_t stream) {
-  constexpr int V = Io16<T>::kWidth;
-  inorm_act_kernel<T><<<dim3(G, N), rows * (C / V), 0, stream>>>(
+  inorm_act_kernel<T><<<dim3(G, N), block_threads(rows, C, Io16<T>::kWidth), 0,
+                        stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out),
       static_cast<const float*>(mean), static_cast<const float*>(mul),
       static_cast<const float*>(bias), bias_n_stride, M, C, rows, slope);
@@ -154,7 +203,7 @@ int launch(const void* x, void* out, const void* mean, const void* mul,
 // How many blocks of `rows` rows fit on one SM at once (the grid is sized
 // to one wave of them); 0 if the shape cannot launch.
 extern "C" int inorm_act_blocks_per_sm(int bf16, int C, int rows) {
-  const int threads = rows * (C / (bf16 ? 8 : 4));
+  const int threads = block_threads(rows, C, bf16 ? 8 : 4);
   int blocks = 0;
   cudaError_t err =
       bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(

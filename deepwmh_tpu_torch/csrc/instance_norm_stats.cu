@@ -38,6 +38,15 @@
 //   most 16 blocks), i.e. at the deep stages alone.
 // - G is capped so that every thread walks at least 16 rows: on the deep,
 //   narrow-spatial stages more blocks would only add partials.
+// - Narrow widths (C < V, V % C == 0: C = 1, 2, 4 in bf16, 1, 2 in f32, the
+//   widths the TPU kernel's 128 % C == 0 contract adds) keep the 16-byte
+//   loads: a sample's flat [M * C] run is read as 16-byte vectors (a "row"
+//   of the walk is one vector, a block 256 of them), and lane j of a vector
+//   holds channel (head + j) % C, head being the elements before the
+//   sample's first 16-byte boundary. Each thread folds its V lanes into C
+//   channel sums in lane order; the head and the elements after the last
+//   whole vector (at most V - 1 each) are read one by one by thread 0 of
+//   block 0. The partials and their two-level sum are the wide path's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,7 +122,36 @@ __device__ void sum_rows(const P* __restrict__ src, size_t n_stride,
   __syncthreads();
 }
 
-// grid (G, N), block rows * (C / V) threads, dynamic shared memory
+// Threads of a block of `rows` rows: C / V a row, one on the narrow path.
+__host__ __device__ inline int block_threads(int rows, int C, int V) {
+  return C < V ? rows : rows * (C / V);
+}
+
+// The narrow path's split of sample n's flat run of L = M * C elements:
+// `head` elements before its first 16-byte boundary, `vecs` whole 16-byte
+// vectors, then the tail up to L.
+struct NarrowSplit {
+  long long head, vecs;
+};
+
+__device__ inline NarrowSplit narrow_split(int n, long long L, int V) {
+  long long head = (V - (long long)n * L % V) % V;
+  if (head > L) head = L;
+  return {head, (L - head) / V};
+}
+
+template <typename T>
+__device__ inline float load_one(const T* p);
+template <>
+__device__ inline float load_one<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat162float(p[0]);
+}
+template <>
+__device__ inline float load_one<float>(const float* p) {
+  return __ldg(p);
+}
+
+// grid (G, N), block block_threads(rows, C, V) threads, dynamic shared memory
 // shared_bytes().
 // partial: [N, G, 2, C] f32 (sum, then sum of squares); ticket: one
 // counter, 0 on entry and reset to 0 by the last block.
@@ -126,7 +164,8 @@ __global__ void inorm_stats_kernel(const T* __restrict__ x,
                                    float* __restrict__ var, long long M, int C,
                                    int rows, int group_blocks, float inv_m) {
   constexpr int V = Vec16<T>::kWidth;
-  const int groups = C / V;
+  const bool narrow = C < V;
+  const int groups = narrow ? 1 : C / V;
   const int g = blockIdx.x;
   const int G = gridDim.x;
   const int n = blockIdx.y;
@@ -140,12 +179,17 @@ __global__ void inorm_stats_kernel(const T* __restrict__ x,
     s[i] = 0.f;
     q[i] = 0.f;
   }
+  // the wide path walks M rows of C / V vectors, a thread one channel
+  // group; the narrow path walks a sample's whole 16-byte vectors
+  const T* sample = x + (size_t)n * (size_t)M * C;
+  const NarrowSplit split = narrow_split(n, M * C, V);
   const uint4* base = reinterpret_cast<const uint4*>(
-      x + (size_t)n * (size_t)M * C + (size_t)cg * V);
-  const size_t row_vecs = (size_t)C / V;  // 16-byte vectors per row
+      narrow ? sample + split.head : sample + (size_t)cg * V);
+  const size_t row_vecs = narrow ? 1 : (size_t)C / V;  // 16-byte vectors per row
+  const long long count = narrow ? split.vecs : M;
   const long long step = (long long)G * rows;
   long long m = (long long)g * rows + r;
-  for (; m + (kUnroll - 1) * step < M; m += kUnroll * step) {
+  for (; m + (kUnroll - 1) * step < count; m += kUnroll * step) {
     uint4 raw[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
@@ -161,7 +205,7 @@ __global__ void inorm_stats_kernel(const T* __restrict__ x,
       }
     }
   }
-  for (; m < M; m += step) {
+  for (; m < count; m += step) {
     float v[V];
     Vec16<T>::unpack(__ldg(base + (size_t)m * row_vecs), v);
 #pragma unroll
@@ -174,10 +218,44 @@ __global__ void inorm_stats_kernel(const T* __restrict__ x,
   extern __shared__ double smem_d[];
   float* ss = reinterpret_cast<float*>(smem_d);  // [rows][C]
   float* sq = ss + rows * C;                      // [rows][C]
+  if (!narrow) {
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    ss[r * C + cg * V + i] = s[i];
-    sq[r * C + cg * V + i] = q[i];
+    for (int i = 0; i < V; ++i) {
+      ss[r * C + cg * V + i] = s[i];
+      sq[r * C + cg * V + i] = q[i];
+    }
+  } else {
+    // lanes folded into channels in lane order; block 0's thread 0 adds
+    // the head and the tail, element by element
+    for (int c = 0; c < C; ++c) {
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        if ((split.head + i) % C == c) {
+          a += s[i];
+          b += q[i];
+        }
+      }
+      if (g == 0 && r == 0) {
+        const long long L = M * C;
+        for (long long e = 0; e < split.head; ++e) {
+          if (e % C == c) {
+            const float v = load_one(sample + e);
+            a += v;
+            b = fmaf(v, v, b);
+          }
+        }
+        for (long long e = split.head + split.vecs * V; e < L; ++e) {
+          if (e % C == c) {
+            const float v = load_one(sample + e);
+            a += v;
+            b = fmaf(v, v, b);
+          }
+        }
+      }
+      ss[r * C + c] = a;
+      sq[r * C + c] = b;
+    }
   }
   __syncthreads();
   float* out = partial + ((size_t)n * G + g) * 2 * C;
@@ -259,8 +337,7 @@ template <typename T>
 int launch(const void* x, void* partial, void* group_sum, void* ticket,
            void* mean, void* var, int N, long long M, int C, int rows, int G,
            int group_blocks, float inv_m, cudaStream_t stream) {
-  constexpr int V = Vec16<T>::kWidth;
-  const int threads = rows * (C / V);
+  const int threads = block_threads(rows, C, Vec16<T>::kWidth);
   inorm_stats_kernel<T><<<dim3(G, N), threads,
                           shared_bytes(threads, rows, N, C), stream>>>(
       static_cast<const T*>(x), static_cast<float*>(partial),
@@ -275,7 +352,7 @@ int launch(const void* x, void* partial, void* group_sum, void* ticket,
 // How many blocks of `rows` rows fit on one SM at once (the grid is sized
 // to one wave of them); 0 if the shape cannot launch.
 extern "C" int inorm_stats_blocks_per_sm(int bf16, int N, int C, int rows) {
-  const int threads = rows * (C / (bf16 ? 8 : 4));
+  const int threads = block_threads(rows, C, bf16 ? 8 : 4);
   const size_t smem = shared_bytes(threads, rows, N, C);
   int blocks = 0;
   cudaError_t err =

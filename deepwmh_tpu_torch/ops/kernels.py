@@ -138,8 +138,10 @@ class _ChannelsLastKernel(CudaKernel):
     permuted view of a channels-last activation) with 16-byte loads: a block
     is ``rows`` rows x C/V threads (V elements in 16 bytes), a grid of (G, N)
     blocks, G sized to one wave of resident blocks and to at least
-    MIN_ROWS_PER_THREAD rows a thread. The geometry of a shape is worked out
-    once and kept."""
+    MIN_ROWS_PER_THREAD rows a thread. Narrow widths (C < V with V % C == 0:
+    C = 1, 2, 4 in bf16 and 1, 2 in f32) walk each sample's flat run as
+    16-byte vectors, a vector a row and THREADS rows a block. The geometry
+    of a shape is worked out once and kept."""
 
     name = ""
     THREADS = 256
@@ -173,10 +175,12 @@ class _ChannelsLastKernel(CudaKernel):
         N, C = int(x.shape[0]), int(x.shape[-1])
         M = x.numel() // max(N * C, 1)
         vec = 16 // x.element_size()
-        groups = C // vec
-        if N == 0 or M == 0 or C % vec:
-            raise ValueError("%s: need N, M > 0 and C %% %d == 0 (N=%d M=%d C=%d)"
-                             % (name, vec, N, M, C))
+        narrow = 0 < C < vec
+        if N == 0 or M == 0 or (vec % C if narrow else C % vec):
+            raise ValueError("%s: need N, M > 0 and C %% %d == 0 or %d %% C == 0 "
+                             "(N=%d M=%d C=%d)" % (name, vec, vec, N, M, C))
+        groups = 1 if narrow else C // vec
+        units = -(-M * C // vec) if narrow else M  # the rows the blocks walk
         rows = max(1, self.THREADS // groups)
         threads = rows * groups
         if threads > 1024 or self._shared_bytes(threads, rows, N, C) > self.MAX_SHARED:
@@ -190,7 +194,7 @@ class _ChannelsLastKernel(CudaKernel):
             per_sm = self._blocks_per_sm(lib, int(bf16), N, C, rows)
         if per_sm < 1:
             raise ValueError("%s: C=%d (N=%d) cannot launch" % (name, C, N))
-        G = max(1, min(-(-M // (rows * self.MIN_ROWS_PER_THREAD)),
+        G = max(1, min(-(-units // (rows * self.MIN_ROWS_PER_THREAD)),
                        self._sms[x.device] * per_sm // N))
         plan = (N, M, C, rows, G, self._launch_fn(lib, bf16))
         self._plans[key] = plan
@@ -233,8 +237,8 @@ class InstanceNormStats(_ChannelsLastKernel):
     instance_norm_stats_pallas). ``x`` [N, *spatial, C] bf16 or f32 ->
     (mean, var) f32 [N, C] (two views of one [2, N, C] tensor), var
     unclamped. On CUDA ``x`` must be contiguous (a channels-last
-    activation's permuted view is), 16-byte aligned, with C a multiple of
-    16 bytes' worth of elements. One launch on the current stream, no
+    activation's permuted view is), 16-byte aligned, with C a multiple or a
+    divisor of 16 bytes' worth of elements. One launch on the current stream, no
     synchronisation; the blocks' partial sums go to a workspace kept per
     device and stream, grown when needed and never freed per call."""
 

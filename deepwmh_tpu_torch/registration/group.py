@@ -59,9 +59,11 @@ def pair_name(source_case: str, target_case: str) -> str:
 def _pair_core(fixed, moving, fsp, msp, acfg, scfg, deformable):
     """One pair on the device: affine pyramid -> resample -> SVF pyramid ->
     final fused [affine, warp] resample. Returns (matrix, affine loss,
-    disp f16 or None, SVF loss or None, warped f16) as device tensors."""
-    fixed = fixed.float()
-    moving = moving.float()
+    disp f16 or None, SVF loss or None, warped f16) as device tensors.
+    The inputs are made C-ordered first: the loops' sums follow the memory
+    order, and equal values must give an equal pair whatever the layout."""
+    fixed = fixed.float().contiguous()
+    moving = moving.float().contiguous()
     mat, aff_loss = _affine_core(fixed, moving, fsp, msp, acfg)
     moving_on_fixed = resample_moving(moving, mat, fixed.shape, fsp, msp, order=1)
     if deformable:
@@ -96,8 +98,8 @@ def register_pairs_mesh(fixed_stack, moving_stack, fixed_spacing, moving_spacing
     n = mesh.size
     B = int(np.shape(fixed_stack)[0])
     pad = (-B) % n
-    fixed_stack = np.asarray(fixed_stack, np.float16)
-    moving_stack = np.asarray(moving_stack, np.float16)
+    fixed_stack = np.ascontiguousarray(fixed_stack, np.float16)
+    moving_stack = np.ascontiguousarray(moving_stack, np.float16)
     if pad:
         fixed_stack = np.concatenate([fixed_stack, np.repeat(fixed_stack[-1:], pad, axis=0)])
         moving_stack = np.concatenate([moving_stack, np.repeat(moving_stack[-1:], pad, axis=0)])
@@ -111,8 +113,8 @@ def register_pairs_mesh(fixed_stack, moving_stack, fixed_spacing, moving_spacing
         with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
             fsp, msp = spacing_tensor(fixed_spacing, dev), spacing_tensor(moving_spacing, dev)
             return {d: [_to_host(_pair_core(
-                torch.from_numpy(np.ascontiguousarray(fixed_stack[i])).to(dev),
-                torch.from_numpy(np.ascontiguousarray(moving_stack[i])).to(dev),
+                torch.from_numpy(fixed_stack[i]).to(dev),
+                torch.from_numpy(moving_stack[i]).to(dev),
                 fsp, msp, acfg, scfg, deformable)) for i in range(d * rows, (d + 1) * rows)]
                 for d in shards}
 

@@ -56,13 +56,70 @@ def test_instance_norm_stats_matches_plain(cuda, shape, dtype):
 
 
 def test_instance_norm_stats_refuses_what_it_cannot_read(cuda):
+    """Narrow widths that divide 16 bytes (C = 4 in bf16) are read since
+    fault B0; other dtypes, rank < 3, widths neither a multiple nor a divisor
+    of 16 bytes' worth and widths past 1024 threads a block still raise."""
     x = torch.randn(1, 4, 4, 4, 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.instance_norm_stats(x.transpose(1, 2))
     with pytest.raises(ValueError, match="dtype"):
         kernels.instance_norm_stats(x.half())
     with pytest.raises(ValueError, match="C % 8"):
-        kernels.instance_norm_stats(x[..., :4].contiguous())
+        kernels.instance_norm_stats(x[..., :3].contiguous())
+    with pytest.raises(ValueError, match="C % 4"):
+        kernels.instance_norm_stats(x[..., :6].float().contiguous())
+    with pytest.raises(ValueError, match=r"\[N, \*spatial, C\]"):
+        kernels.instance_norm_stats(x.reshape(-1, 32))
+    with pytest.raises(ValueError, match="too wide"):
+        kernels.instance_norm_stats(torch.zeros(1, 2, 8 * 1025, device=cuda,
+                                                dtype=torch.bfloat16))
+    kernels.instance_norm_stats(x[..., :4].contiguous())
+    torch.cuda.synchronize()
+
+
+# (shape, dtype) at K1's narrow widths: C = 1, 2, 4 in bf16 and 1, 2 in f32,
+# with M * C a multiple of 16 bytes' worth and not (a tail read element by
+# element; with N > 1 later samples also start off a 16-byte boundary)
+NARROW_K1 = [
+    ((1, 16, 20, 12, 4), torch.bfloat16),
+    ((2, 7, 9, 5, 4), torch.bfloat16),
+    ((3, 5, 5, 3, 2), torch.bfloat16),
+    ((2, 33, 17, 9, 1), torch.bfloat16),
+    ((1, 64, 80, 64, 4), torch.bfloat16),
+    ((2, 10, 12, 9, 2), torch.float32),
+    ((3, 5, 7, 3, 1), torch.float32),
+    ((1, 1, 1, 1, 1), torch.float32),
+    ((2, 64, 80, 64, 2), torch.float32),
+]
+
+
+@pytest.mark.parametrize("shape,dtype", NARROW_K1)
+def test_instance_norm_stats_narrow_widths(cuda, shape, dtype):
+    """Fault B0: K1's statistics at the narrow widths JAX's kernel takes
+    (128 % C == 0), one launch each, within K1's tolerance of the plain
+    version and the same bits on a second call."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    before = kernels.instance_norm_stats.launches
+    first = kernels.instance_norm_stats(x)
+    second = kernels.instance_norm_stats(x)
+    torch.cuda.synchronize()
+    assert kernels.instance_norm_stats.launches == before + 2
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    ref_mean, ref_var = kernels.instance_norm_stats_reference(x)
+    torch.testing.assert_close(first[0], ref_mean, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(first[1], ref_var, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape,dtype", NARROW_K1)
+def test_instance_norm_act_narrow_widths_equal_plain(cuda, shape, dtype):
+    """Fault B0: the apply pass at the narrow widths, bit for bit the plain
+    chain, with per-sample and shared bias."""
+    for per_sample in (False, True):
+        x, mean, mul, bias = _apply_inputs(shape, dtype, cuda, 5, per_sample_bias=per_sample)
+        got = kernels.instance_norm_act(x, mean, mul, bias, 0.01)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kernels.instance_norm_act_reference(x, mean, mul, bias, 0.01))
 
 
 def _flagship_stats_shapes():
@@ -124,9 +181,18 @@ def test_instance_norm_act_equals_plain_at_full_resolution(cuda):
 
 
 def test_instance_norm_act_refuses_what_it_cannot_read(cuda):
+    """The stats kernel's layout rules (narrow widths read since fault B0),
+    then the statistics' own checks and autograd."""
     x, mean, mul, bias = _apply_inputs((1, 4, 4, 4, 32), torch.bfloat16, cuda, 0)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.instance_norm_act(x.transpose(1, 2), mean, mul, bias, 0.01)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.instance_norm_act(x.half(), mean, mul, bias, 0.01)
+    x3, mean3, mul3, bias3 = _apply_inputs((1, 4, 4, 4, 3), torch.bfloat16, cuda, 0)
+    with pytest.raises(ValueError, match="C % 8"):
+        kernels.instance_norm_act(x3, mean3, mul3, bias3, 0.01)
+    x4, mean4, mul4, bias4 = _apply_inputs((1, 4, 4, 4, 4), torch.bfloat16, cuda, 0)
+    kernels.instance_norm_act(x4, mean4, mul4, bias4, 0.01)
     with pytest.raises(ValueError, match="mean"):
         kernels.instance_norm_act(x, mean[:, :16], mul, bias, 0.01)
     with pytest.raises(ValueError, match="mul"):
@@ -419,8 +485,8 @@ def test_sample_channels_on_card_equals_cpu(cuda):
 def test_run_train_on_card(cuda, tmp_path):
     """The whole training flow on the card (tests/test_train_pipeline_e2e.py's
     cohort, the default device): every marker, the release, and K1 (the
-    2-4 and 3-5 sweeps) and K2 (stage-1's median) launched. Widths 8 / 16:
-    K1's kernels read channels in 16-byte groups (C % 8 == 0)."""
+    2-4 and 3-5 sweeps) and K2 (stage-1's median) launched. The CPU tests'
+    base-4 plan: K1 reads widths 4 and 8 (the narrow path since B0)."""
     import os
 
     from deepwmh_tpu_torch.cli.train import run_train
@@ -430,7 +496,7 @@ def test_run_train_on_card(cuda, tmp_path):
     ref_csv, tr_csv, _ = write_e2e_cohort(str(tmp_path))
     before = {name: k.launches for name, k in kernels.KERNELS.items()}
     core = run_train(ref_csv, tr_csv, str(tmp_path / "out"), skip_bfc=True,
-                     budget=StageBudget(**dict(BUDGET, base_features=8, max_features=16)))
+                     budget=StageBudget(**BUDGET))
     for m in MARKERS:
         assert os.path.isfile(os.path.join(core, "Checkpoints", m)), m
     assert os.path.isfile(os.path.join(core, "Model_release", "model_release.tar.gz"))
@@ -515,14 +581,36 @@ def test_converted_model_k1_forward_equals_plain(cuda, tmp_path):
 
 
 def test_converted_narrow_model_refuses_on_card(cuda, tmp_path):
-    """A converted plan whose widths are not multiples of 8 raises on the
-    card with K1's message; it never slips onto the plain chain."""
+    """A converted plan of width 3 (neither a multiple nor a divisor of 8
+    bf16 lanes) raises on the card with K1's message; it never slips onto
+    the plain chain. Width 4 runs K1's narrow path since fault B0, within
+    K1's tolerances of the plain chain."""
     from deepwmh_tpu_torch.unet.release import load_released_model
 
-    _net, pkg = _converted(tmp_path, base=4)
+    _net, pkg = _converted(tmp_path / "w3", base=3)
     model, _plan = load_released_model(pkg, device=cuda)
     with torch.no_grad(), pytest.raises(ValueError, match="C % 8"):
         model(torch.randn(1, 1, 16, 16, 16, device=cuda))
+    _net, pkg = _converted(tmp_path / "w4", base=4)
+    model, plan = load_released_model(pkg, device=cuda, dtype=torch.float32)
+    plain = UNet3D(plan, dtype=torch.float32, fused_norm=False)
+    plain.load_state_dict(model.state_dict())
+    plain = plain.to(cuda, memory_format=torch.channels_last_3d).eval()
+    x = torch.randn((1, 1, 16, 24, 16), generator=torch.Generator().manual_seed(1)).to(cuda)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            before = kernels.instance_norm_stats.launches
+            got = model(x, deep_supervision=True)
+            torch.cuda.synchronize()
+            launched = kernels.instance_norm_stats.launches - before
+            want = plain(x, deep_supervision=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert launched == 4 * plan.num_pools + 2
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
 
 def test_native_host_library_builds_here(cuda):

@@ -9,9 +9,8 @@ the same seeded inputs, and DICOM -> dcm2niix -> predict through both.
 - Plain paths: the port's native and Python decoders are bit-equal on each
   of the three native routes, and a library that cannot be built raises.
 - DICOM: both ``convert_directory`` write NIfTIs whose decompressed bytes
-  (header and voxels) are equal, for every syntax and special case. The
-  gzip bytes differ by design (JAX deflates through native zlib, the port
-  through Python's gzip).
+  (header and voxels) are equal, for every syntax and special case (both
+  deflate through zlib, so the gzip bytes agree too).
 - The slice: a JPEG Lossless series of the fixture phantom through each
   package's dcm2niix and run_predict: > 99.9% voxel agreement on each mask,
   foreground probability within atol 5e-3.

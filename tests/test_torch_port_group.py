@@ -102,6 +102,94 @@ def test_pair_core_matches_jax(cohort):
     assert (lab == jlab).mean() >= 0.995
 
 
+def _layout_pair():
+    """A 16x20x16 pair: a sphere and a stretched, shifted copy, f16 as
+    uploaded."""
+    rs = np.random.RandomState(0)
+    shape = (16, 20, 16)
+    g = np.meshgrid(*[np.linspace(-1, 1, s) for s in shape], indexing="ij")
+    fixed = (np.sqrt(sum(a ** 2 for a in g)) < 0.7) * (100 + 20 * rs.rand(*shape))
+    g2 = (g[0] * 1.08 + 0.05, g[1] * 0.95, g[2])
+    moving = (np.sqrt(sum(a ** 2 for a in g2)) < 0.7) * (100 + 20 * rs.rand(*shape))
+    return fixed.astype(np.float16), moving.astype(np.float16), shape
+
+
+def test_pair_core_ignores_input_layout():
+    """Fault C6: a Fortran-ordered upload gives the C-ordered upload's
+    matrix, displacement and warped volume bit for bit (``_pair_core``
+    makes its inputs contiguous; before, the order of the loops' sums
+    followed the layout and moved the matrix)."""
+    fixed, moving, shape = _layout_pair()
+    acfg = affine.feasible_affine_cfg(affine.AffineConfig(shrinks=(2, 1), iters=(6, 4)), shape)
+    scfg = svf._feasible_cfg(svf.SVFConfig(shrinks=(2, 1), iters=(3, 2), exact_polish_iters=1),
+                             shape)
+    sp = affine.spacing_tensor(SP1, "cpu")
+
+    def run(order):
+        f, m = (torch.from_numpy(np.asarray(a, order=order)) for a in (fixed, moving))
+        assert f.is_contiguous() == (order == "C")
+        return group._to_host(group._pair_core(f, m, sp, sp, acfg, scfg, True))
+
+    c, f = run("C"), run("F")
+    for a, b in zip(c, f):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    mesh = group.register_pairs_mesh(np.asfortranarray(fixed)[None], np.asfortranarray(moving)[None],
+                                     SP1, SP1, Mesh(["cpu"]), affine_cfg=acfg, svf_cfg=scfg)
+    for a, b in zip(c, mesh):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b)[0])
+
+
+def _warped_brain(mat, disp16, label, shape, apply):
+    return np.asarray(apply(label, np.asarray(mat), np.asarray(disp16), shape, SP1, SP1,
+                            order=0)) > 0.5
+
+
+@pytest.mark.slow
+def test_one_ulp_amplification_both_packages(cohort, capsys):
+    """Fault C6's measurement: one pair at this file's size with the
+    training-prep preset, then the same pair with every moving voxel moved
+    one f16 ulp up (``np.nextafter`` toward +inf), in both packages. JAX
+    arrays carry no layout, so this is the like-for-like probe of how far
+    the loops amplify a last-bit change. Prints each package's largest
+    matrix change and the Dice of the propagated brain masks; fails where
+    the port amplifies (> 0.05) while the reference does not (< 1e-3)."""
+    _, _, cases = cohort
+    fixed = nifti.load_nifti_simple(cases["tgt0"][0]).astype(np.float16)
+    moving = nifti.load_nifti_simple(cases["src1"][0]).astype(np.float16)
+    label = nifti.load_nifti_simple(cases["src1"][1]).astype(np.float32)
+    bumped = np.nextafter(moving, np.float16(np.inf))
+    assert (bumped != moving).all()
+    preset = dict(shrinks=(8, 4))
+    acfg = affine.feasible_affine_cfg(affine.AffineConfig(iters=(200, 120), **preset), SHAPE)
+    scfg = svf._feasible_cfg(svf.SVFConfig(iters=(200, 160), n_squaring=4, exact_polish_iters=30,
+                                           **preset), SHAPE)
+    jacfg = jaffine.AffineConfig(**{k: getattr(acfg, k) for k in acfg.__dataclass_fields__})
+    jscfg = jsvf.SVFConfig(**{k: getattr(scfg, k) for k in scfg.__dataclass_fields__})
+    sp = np.ones(3, np.float32)
+    readings = {}
+    for name in ("jax", "port"):
+        outs = []
+        for mov in (moving, bumped):
+            if name == "jax":
+                outs.append(tuple(np.asarray(o) for o in jgroup._pair_core_jit(
+                    jnp.asarray(fixed), jnp.asarray(mov), jnp.asarray(sp), jnp.asarray(sp),
+                    jacfg, jscfg, deformable=True)))
+            else:
+                outs.append(group._to_host(group._pair_core(
+                    torch.from_numpy(fixed), torch.from_numpy(mov), T(sp), T(sp), acfg, scfg,
+                    True)))
+        apply = jsvf.apply_affine_svf if name == "jax" else (
+            lambda lab, m, d, *a, **k: svf.apply_affine_svf(T(lab), T(m), T(d), *a, **k).numpy())
+        a, b = (_warped_brain(o[0], o[2], label, SHAPE, apply) for o in outs)
+        readings[name] = {"matrix": float(np.abs(outs[0][0] - outs[1][0]).max()),
+                          "field": float(np.abs(outs[0][2].astype(np.float32)
+                                                - outs[1][2].astype(np.float32)).max()),
+                          "brain_dice": _dice(a, b)}
+    with capsys.disabled():
+        print("\none-ulp readings:", json.dumps(readings))
+    assert not (readings["jax"]["matrix"] < 1e-3 and readings["port"]["matrix"] > 0.05), readings
+
+
 def _dice(a, b):
     return 2.0 * float((a & b).sum()) / max(float(a.sum() + b.sum()), 1.0)
 

@@ -14,6 +14,7 @@ run as the JAX package's slow tests do; a slow witness runs both packages'
 """
 
 import os
+import shutil
 import time
 
 import numpy as np
@@ -260,3 +261,238 @@ def test_stage1_witness_against_jax(tmp_path, seed, n_ref, n_train):
     assert abs(means["stage1_dice"]["port"] - means["stage1_dice"]["jax"]) < 0.1, means
     assert abs(means["propagated_tissue_dice"]["port"]
                - means["propagated_tissue_dice"]["jax"]) < 0.05, means
+
+
+# the configuration of test_e2e_heldout_dice_floor (tests/test_e2e_accuracy.py's)
+WITNESS_E2E = dict(shape=(48, 56, 48), n_ref=4, n_train=2, n_test=1)
+WITNESS_BUDGET = dict(stage2_epochs=6, stage3_epochs=14, batches_per_epoch=12, batch_size=2,
+                      voxel_budget=24**3, base_features=16, max_features=128)
+WITNESS_MARKERS = ("STAGE_2-4_RAW_SOFTMAX", "STAGE_2-5_MASKED_SOFTMAX", "STAGE_2-6_ENSEMBLING",
+                   "STAGE_3-1_DATA_SPLIT", "STAGE_3-5_FINAL_FIT", "PIPELINE_TRAINING_COMPLETE")
+
+
+def _first_parting(a, b, rtol=1e-3):
+    """The first (1-based) epoch whose readings part by more than ``rtol``,
+    or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if abs(x - y) > rtol * max(abs(x), abs(y), 1e-12):
+            return i + 1
+    return None
+
+
+def _cut_copy(src, dst, markers, paths):
+    """A copy of a finished e2e work folder with ``markers`` cleared and the
+    artifacts under ``paths`` (relative to the pipeline's core folder)
+    removed, so a resume redoes exactly those phases."""
+    shutil.copytree(src, dst)
+    core = os.path.join(dst, "train_out", "004_WMH_pipeline")
+    for m in markers:
+        os.remove(os.path.join(core, "Checkpoints", m))
+    for rel in paths + ("Model_release",):
+        shutil.rmtree(os.path.join(core, rel), ignore_errors=True)
+    for rel in ("installed_model", "predict_out"):
+        shutil.rmtree(os.path.join(dst, rel), ignore_errors=True)
+    return core
+
+
+@pytest.mark.slow
+def test_stage2_witness_against_jax(tmp_path, monkeypatch):
+    """Fault C5's witness: where the packages part after stage I. JAX runs
+    the e2e floor's configuration (48x56x48, 4 x 2 pairs, base 16 -> 128)
+    through stage I; the port's stages II-III then start from JAX's stage-I
+    artifacts (the shared artifact contract), both packages training in
+    f32 without augmentation, the port from JAX's initial weights of each
+    stage (``Trainer.init_state`` monkeypatched; torch on one thread).
+
+    Compared: the per-epoch training losses of stage II and (from JAX's
+    stage-II outputs) stage III and stage III's validation metric, each
+    with the first epoch where they part by more than rtol 1e-3 (reported;
+    training amplifies last-bit differences); then the deterministic
+    pieces, each redone by the port on JAX's own inputs in a cut copy of
+    JAX's finished folder: the 2-4 sweep on JAX's ensemble checkpoints (fg
+    within 1e-3), 2-5 / 2-6 (> 99.9% voxel agreement), stage III's split
+    (equal), the 3-5 fit on JAX's model (> 99.9%); and the held-out Dice of
+    each package's model. Prints the readings as one JSON line. JAX keeps
+    its own XLA thread settings (set XLA_FLAGS before the run to pin it)."""
+    import functools
+    import json
+
+    import jax
+
+    from deepwmh_tpu.eval import e2e as je2e
+    from deepwmh_tpu.pipeline.multistage import StageBudget as JStageBudget
+    from deepwmh_tpu.unet import checkpoint as jckpt
+    from deepwmh_tpu.unet import train as jtrain
+    from deepwmh_tpu_torch.eval import e2e
+    from deepwmh_tpu_torch.pipeline import multistage as ms
+    from deepwmh_tpu_torch.unet import checkpoint as ckpt
+    from deepwmh_tpu_torch.unet import train as ptrain
+
+    torch.set_num_threads(1)
+    jwork, pwork = str(tmp_path / "jax"), str(tmp_path / "port")
+    je2e.run_e2e_accuracy(jwork, budget=JStageBudget(**WITNESS_BUDGET), run_stages="initseg",
+                          **WITNESS_E2E)
+    shutil.copytree(jwork, pwork)
+
+    # both packages: f32 networks, no augmentation; each checkpoint's meta
+    # and JAX's initial weights of each stage recorded
+    monkeypatch.setattr(jms, "TrainConfig", functools.partial(jtrain.TrainConfig, augment=False))
+    monkeypatch.setattr(jtrain, "UNet3D", functools.partial(jtrain.UNet3D,
+                                                            dtype=jax.numpy.float32))
+    monkeypatch.setattr(jms, "UNet3D", functools.partial(jms.UNet3D, dtype=jax.numpy.float32))
+    monkeypatch.setattr(ms, "TrainConfig", functools.partial(ptrain.TrainConfig, augment=False))
+    monkeypatch.setattr(ms, "Trainer", functools.partial(ptrain.Trainer, dtype=torch.float32))
+    monkeypatch.setattr(ms, "UNet3D", functools.partial(ms.UNet3D, dtype=torch.float32))
+    inits, metas = {}, {"jax": {}, "port": {}}
+
+    def task_of(out_dir):
+        return os.path.basename(os.path.dirname(os.path.abspath(out_dir)))
+
+    run = {"jax": "jax", "port": "port"}  # whose readings the next run records
+
+    def recording(save, package):
+        def wrapped(out_dir, name, *a, **kw):
+            if name == "model_latest":
+                metas.setdefault(run[package], {}).setdefault(task_of(out_dir), []).append(
+                    dict(a[-1] if a else kw["meta"]))
+            return save(out_dir, name, *a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(jckpt, "save_checkpoint", recording(jckpt.save_checkpoint, "jax"))
+    monkeypatch.setattr(ckpt, "save_checkpoint", recording(ckpt.save_checkpoint, "port"))
+    jinit = jtrain.Trainer.init_state
+
+    def jax_init(self, rng):
+        params, opt_state = jinit(self, rng)
+        inits[task_of(self.out_dir)] = jax.device_get(params)
+        return params, opt_state
+
+    def from_jax_init(self, seed):
+        self.load_state_trees(inits[task_of(self.out_dir)])
+        for t in self.trace:
+            t.zero_()
+
+    monkeypatch.setattr(jtrain.Trainer, "init_state", jax_init)
+    monkeypatch.setattr(ptrain.Trainer, "init_state", from_jax_init)
+
+    budget = StageBudget(**WITNESS_BUDGET)
+    res = {"jax": je2e.run_e2e_accuracy(jwork, budget=JStageBudget(**WITNESS_BUDGET),
+                                        run_stages="full", **WITNESS_E2E)}
+    res["port"] = e2e.run_e2e_accuracy(pwork, budget=budget, run_stages="full", device="cpu",
+                                       **WITNESS_E2E)
+
+    # stage III given JAX's stage II: the port trains stage III only
+    p3work = str(tmp_path / "port_stage3")
+    _cut_copy(jwork, p3work, ("STAGE_3-4_TRAINING", "STAGE_3-5_FINAL_FIT",
+                              "PIPELINE_TRAINING_COMPLETE"),
+              ("DCNN_Outputs/Task002_FinalModel/training", "Stage_3_DCNN_training/002_training_fit"))
+    run["port"] = "port_stage3"
+    res["port_stage3"] = e2e.run_e2e_accuracy(p3work, budget=budget, run_stages="full",
+                                              device="cpu", **WITNESS_E2E)
+
+    # the deterministic pieces on JAX's inputs: 2-4 on JAX's checkpoints,
+    # 2-5, 2-6, the split and the 3-5 fit on JAX's model
+    cut = str(tmp_path / "port_cut")
+    core_cut = _cut_copy(jwork, cut, WITNESS_MARKERS, (
+        "Stage_2_label_denoising/003_raw_softmax", "Stage_2_label_denoising/004_masked_softmax",
+        "Stage_2_label_denoising/005_refined_label", "Stage_3_DCNN_training/001_data_partitions",
+        "Stage_3_DCNN_training/002_training_fit"))
+    res["port_cut"] = e2e.run_e2e_accuracy(cut, budget=budget, run_stages="full", device="cpu",
+                                           **WITNESS_E2E)
+    core_jax = os.path.join(jwork, "train_out", "004_WMH_pipeline")
+
+    def load(core, *rel):
+        return nifti.load_nifti_simple(os.path.join(core, *rel))
+
+    subs = ["SUB%02d" % i for i in range(WITNESS_E2E["n_train"])]
+    s2 = "Stage_2_label_denoising"
+    epochs = range(WITNESS_BUDGET["stage2_epochs"] - max(int(0.1 * WITNESS_BUDGET[
+        "stage2_epochs"]), 1) + 1, WITNESS_BUDGET["stage2_epochs"] + 1)
+    fg_diff = max(float(np.abs(load(core_cut, s2, "003_raw_softmax", "epoch_%04d" % e,
+                                    "%s_0.nii.gz" % c)
+                               - load(core_jax, s2, "003_raw_softmax", "epoch_%04d" % e,
+                                      "%s_0.nii.gz" % c)).max())
+                  for e in epochs for c in subs)
+    masked = min(float((np.abs(load(core_cut, s2, "004_masked_softmax", "epoch_%04d" % e,
+                                    "%s_0.nii.gz" % c)
+                               - load(core_jax, s2, "004_masked_softmax", "epoch_%04d" % e,
+                                      "%s_0.nii.gz" % c)) <= 1e-3).mean())
+                 for e in epochs for c in subs)
+    refined = min(float((load(core_cut, s2, "005_refined_label", c, "label_ensembled.nii.gz")
+                         == load(core_jax, s2, "005_refined_label", c,
+                                 "label_ensembled.nii.gz")).mean()) for c in subs)
+    split = {k: json.load(open(os.path.join(core, "Stage_3_DCNN_training",
+                                            "001_data_partitions", "split.json")))
+             for k, core in (("port", core_cut), ("jax", core_jax))}
+    fit = min(float((load(core_cut, "Stage_3_DCNN_training", "002_training_fit",
+                          "3mm_postproc", "%s.nii.gz" % c)
+                     == load(core_jax, "Stage_3_DCNN_training", "002_training_fit",
+                             "3mm_postproc", "%s.nii.gz" % c)).mean()) for c in subs)
+
+    def losses(package, task, key="train_loss"):
+        return [m[key] for m in metas[package].get(task, [])]
+
+    t2, t3 = ms.PipelineMultistage.STAGE2_TASK, ms.PipelineMultistage.STAGE3_TASK
+    readings = {
+        "stage2_loss": {"jax": losses("jax", t2), "port": losses("port", t2)},
+        "stage3_loss_from_jax_stage2": {"jax": losses("jax", t3),
+                                        "port": losses("port_stage3", t3)},
+        "stage3_val_from_jax_stage2": {"jax": losses("jax", t3, "val_metric"),
+                                       "port": losses("port_stage3", t3, "val_metric")},
+        "cut": {"fg_2_4_max_abs": fg_diff, "masked_2_5_within_1e-3": masked,
+                "label_2_6_agreement": refined, "split": split, "fit_3_5_agreement": fit},
+        "heldout_dice": {k: r["dice"] for k, r in res.items()},
+        "stage1_dice": {k: r["stage1_dice"] for k, r in res.items()},
+        "trainfit_dice": {k: r["trainfit_dice"] for k, r in res.items()},
+    }
+    readings["first_parting_epoch"] = {
+        k: _first_parting(readings[k]["jax"], readings[k]["port"])
+        for k in ("stage2_loss", "stage3_loss_from_jax_stage2", "stage3_val_from_jax_stage2")}
+    print("\n" + json.dumps({"witness": "stage2", **readings}))
+    assert len(readings["stage2_loss"]["port"]) == WITNESS_BUDGET["stage2_epochs"]
+    assert len(readings["stage3_loss_from_jax_stage2"]["port"]) == WITNESS_BUDGET["stage3_epochs"]
+    # the deterministic pieces: a disagreement here is a port defect
+    assert fg_diff <= 1e-3, readings["cut"]
+    assert masked > 0.999 and refined > 0.999, readings["cut"]
+    assert split["port"] == split["jax"], split
+    assert fit > 0.999, readings["cut"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("train_seed", [0, 1, 2])
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_training_seed_spread(tmp_path, monkeypatch, package, train_seed):
+    """Fault C5's spread: test_e2e_heldout_dice_floor's loop (cohort seed 0,
+    48x56x48, 4 x 2 pairs, base 16 -> 128) with the training seed
+    (``TrainConfig.seed``: initial weights, augmentation draws and patch
+    sampling) set to ``train_seed`` in the pipeline of ``package``. Prints
+    the held-out, stage-1 and training-fit Dice as one JSON line. The
+    threads are the run's own (torch's from OMP_NUM_THREADS, JAX's from
+    XLA_FLAGS): launch it once per setting to compare them."""
+    import functools
+    import json
+
+    if package == "jax":
+        from deepwmh_tpu.eval.e2e import run_e2e_accuracy
+        from deepwmh_tpu.pipeline.multistage import StageBudget as Budget
+        from deepwmh_tpu.unet.train import TrainConfig
+
+        monkeypatch.setattr(jms, "TrainConfig", functools.partial(TrainConfig, seed=train_seed))
+        kw = {}
+    else:
+        from deepwmh_tpu_torch.eval.e2e import run_e2e_accuracy
+        from deepwmh_tpu_torch.pipeline import multistage as ms
+        from deepwmh_tpu_torch.unet.train import TrainConfig
+
+        Budget = StageBudget
+        monkeypatch.setattr(ms, "TrainConfig", functools.partial(TrainConfig, seed=train_seed))
+        kw = {"device": "cpu"}
+    t0 = time.time()
+    res = run_e2e_accuracy(str(tmp_path), budget=Budget(**WITNESS_BUDGET), run_stages="full",
+                           **WITNESS_E2E, **kw)
+    print("\n" + json.dumps({
+        "spread": package, "train_seed": train_seed, "torch_threads": torch.get_num_threads(),
+        "xla_flags": os.environ.get("XLA_FLAGS", ""), "heldout_dice": res["dice"],
+        "stage1_dice": res["stage1_dice"], "trainfit_dice": res["trainfit_dice"],
+        "wall_s": time.time() - t0}))
+    assert 0.0 <= res["dice"] <= 1.0
