@@ -996,9 +996,11 @@ def median3_library(vol):
     computes one): F.pad + three unfolds + torch.median(dim=-1)."""
     import torch.nn.functional as F
 
-    D, H, W = vol.shape
-    win = F.pad(vol, (1, 1, 1, 1, 1, 1)).unfold(0, 3, 1).unfold(1, 3, 1).unfold(2, 3, 1)
-    return win.reshape(D, H, W, 27).median(-1).values
+    lead = vol.dim() - 3  # a batch [B, D, H, W] volume by volume
+    win = F.pad(vol, (1, 1, 1, 1, 1, 1))
+    for ax in range(lead, lead + 3):
+        win = win.unfold(ax, 3, 1)
+    return win.reshape(tuple(vol.shape) + (27,)).median(-1).values
 
 
 def _cu_constant(source: str, name: str) -> int:
@@ -1114,7 +1116,40 @@ def phase_k2(kernels):
                 "per": "one flagship stage-1 call, %dx%dx%d" % shape,
             }
         del vol, got, want, lib
+    entry.update(k2_batch(kernels, entry["bound_ms"]))
     return entry
+
+
+K2_BATCH = 2  # flagship volumes in one batched call (stage-1 over a case batch)
+
+
+def k2_batch(kernels, single_bound_ms) -> dict:
+    """K2 over [K2_BATCH, 192, 224, 192] in one launch against the single
+    calls on each volume (bit-equal) and the plain version: its time, its
+    bound (K2_BATCH times the one-volume bound: the same work a volume)
+    and its launches."""
+    import torch
+
+    k2 = kernels.median3
+    vols = torch.stack([signed_volume(FLAGSHIP_SHAPE, seed=20 + b) for b in range(K2_BATCH)])
+    before = k2.launches
+    got = k2(vols)
+    torch.cuda.synchronize()
+    launches = k2.launches - before
+    singles = torch.stack([k2(v) for v in vols])
+    want = kernels.median3_reference(vols)
+    check(launches == 1, "the batched K2 call launched %d times" % launches)
+    check(torch.equal(got, singles), "the batched K2 differs from single calls")
+    check(torch.equal(got, want), "the batched K2 differs from its plain version")
+    row = {"batch_shape": list(vols.shape), "batch_launches": launches,
+           "batch_max_abs_err": float((got - want).abs().max()),
+           "batch_ms": cuda_ms(lambda: k2(vols)),
+           "batch_singles_ms": cuda_ms(lambda: [k2(v) for v in vols]),
+           "batch_plain_ms": cuda_ms(lambda: kernels.median3_reference(vols), iters=5),
+           "batch_library_ms": cuda_ms(lambda: median3_library(vols), iters=5),
+           "batch_bound_ms": K2_BATCH * single_bound_ms}
+    emit({"phase": "k2_batch", **row})
+    return row
 
 
 def _dice(a, b):
@@ -1196,6 +1231,7 @@ def phase_stage1(kernels, work, smi):
                                                                    first["anomaly_score"]),
           "the staged rerun differs from the main run")
     stage_sum = sum(stage_s.values())
+    batch, batch_launches = stage1_batch(kernels)
     emit({"phase": "stage1", "nvidia_smi": smi, "shape": list(FLAGSHIP_SHAPE),
           "spacing": list(FLAGSHIP_SPACING), "K": STAGE1_K, "cases": len(cases),
           "setup_s": setup_s, "wall_s": wall_s, "s_per_case": wall_s / len(cases),
@@ -1208,8 +1244,71 @@ def phase_stage1(kernels, work, smi):
           "median3_share_of_device": stage_s["median_3mm"] / stage_sum,
           # analyze_case outside the device stages: the host's stacking and
           # label-count work and the copies to and from the card
-          "host_s": io, "analyze_case_outside_stages_s": io["analyze_case"] - stage_sum})
-    return launches, (inputs, out)
+          "host_s": io, "analyze_case_outside_stages_s": io["analyze_case"] - stage_sum,
+          "batch": batch})
+    return launches, (inputs, out), batch_launches
+
+
+def stage1_batch(kernels):
+    """Stage-1 over a case batch: the phase's case (seed 0) and a second
+    seeded one through one nll_analysis_batch (B = 2), each row against
+    nll_analysis_core on that case at the stage-1 bars (anomaly within 1e-4
+    of its max, threshold equal or one bin apart, averaged label equal);
+    device seconds of the batch and of the cases one by one, peak memory
+    and the batch's launches (counts reset just before it)."""
+    import torch
+
+    from deepwmh_tpu_torch.pipeline.analysis import (
+        nll_analysis_batch,
+        nll_analysis_core,
+        patch_size_from_voxel,
+    )
+
+    cohorts = [synthetic_cohort(FLAGSHIP_SHAPE, STAGE1_K, seed)[:4] for seed in (0, 1)]
+    kw = dict(patch_size=patch_size_from_voxel(FLAGSHIP_SPACING), voxel_size=FLAGSHIP_SPACING,
+              num_label_classes=max(int(c[3].max()) for c in cohorts) + 1)
+    dev = torch.device(DEVICE)
+    up = [[torch.from_numpy(a).to(dev) for a in c] for c in cohorts]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    singles, single_s = [], []
+    for c in up:
+        out, sec = timed(lambda: nll_analysis_core(*c, **kw))
+        singles.append([o.cpu().numpy() for o in out])
+        single_s.append(sec)
+    stacks = [torch.stack([c[i] for c in up]) for i in range(4)]
+    del up
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.KERNELS.values():
+        k.launches = 0
+    out, batch_s = timed(lambda: nll_analysis_batch(*stacks, **kw))
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = [o.cpu().numpy() for o in out]
+    del stacks, out
+    check(launches["median3"] == 1, "the batched stage-1 launched K2 %d times, expected once"
+          % launches["median3"])
+    rows = []
+    for b, one in enumerate(singles):
+        bin_w = float(one[4][1] - one[4][0])
+        row = {"anomaly_max_rel": float(np.abs(got[0][b] - one[0]).max() / np.abs(one[0]).max()),
+               "threshold": float(got[8][b]), "threshold_one": float(one[8]),
+               "bin_width": bin_w,
+               "averaged_label_equal": bool(np.array_equal(got[3][b], one[3])),
+               "valid_agreement": float((got[1][b] == one[1]).mean())}
+        check(row["anomaly_max_rel"] <= 1e-4 and abs(row["threshold"] - row["threshold_one"])
+              <= bin_w * 1.0001 and row["averaged_label_equal"],
+              "stage-1 batch row %d against its case: %r" % (b, row))
+        rows.append(row)
+    return {"cases": len(cohorts), "batch_s": batch_s, "one_by_one_s": single_s,
+            "batch_over_one_by_one": batch_s / sum(single_s), "peak_device_gb": peak_gb,
+            "launches": launches, "rows": rows}, launches
 
 
 def phase_stage1_card_vs_cpu(kernels):
@@ -1428,7 +1527,8 @@ def phase_mesh(kernels, work, smi, pkg, flair, stage1=None):
       in the brain; twice for the same bits);
     - the predict CLI with --mesh against -g 0 (a one-card mesh: the same
       bits), serve --mesh --once on two requests;
-    - stage-1 over the mesh (two cases) against the one-by-one run
+    - stage-1 over the mesh (two cases padded to a block of one a shard)
+      against the one-by-one run
       (``stage1``: (inputs, output folder) of phase stage1's case0; run
       here when absent)."""
     import io
@@ -1576,7 +1676,7 @@ def phase_mesh(kernels, work, smi, pkg, flair, stage1=None):
           "serve --mesh: K1 launched %d times" % serve_launches["instance_norm_stats"])
     out.update(serve_cli={"s": serve_s, "requests": 2, "launches": serve_launches})
 
-    # 6. stage-1 over the mesh: two cases dealt over the shards
+    # 6. stage-1 over the mesh: two cases, a block a shard
     if stage1 is None:
         inputs = write_cohort(os.path.join(work, "cohort"), FLAGSHIP_SHAPE, FLAGSHIP_SPACING,
                               STAGE1_K, seed=0)[:4]
@@ -1591,8 +1691,11 @@ def phase_mesh(kernels, work, smi, pkg, flair, stage1=None):
         an.add_case(case, *inputs)
     _, s1_launches, s1_s = _counted(kernels, lambda: an.analyze_and_do_segmentation(
         intensity_prior="+", mesh=mesh))
-    check(s1_launches["median3"] == 2, "stage-1 over the mesh: K2 launched %d times, expected 2"
-          % s1_launches["median3"])
+    # nll_analysis_batch(mesh=) pads the two cases to a block of one a shard
+    # (the last case repeated, as JAX's does) and runs each as the one-case core
+    check(s1_launches["median3"] == mesh.size,
+          "stage-1 over the mesh: K2 launched %d times, expected %d (one a shard)"
+          % (s1_launches["median3"], mesh.size))
     for case in ("m0", "m1"):
         for key in STAGE1_ARTIFACTS:
             a = nifti.load_nifti_simple(os.path.join(work, "mesh_stage1", case, key + ".nii.gz"))
@@ -2150,10 +2253,12 @@ def _profile_steps(fn, steps):
             "device_ms_per_step": dev_ms, "busy_share": dev_ms / wall_ms}
 
 
-def reg_step_readings(fixed, moving, acfg, scfg, dev, steps=5):
-    """Launches per Adam step, device and wall ms per step and the busy
-    share at every pyramid level of the preset, affine (rigid, strided MI
-    where the level has the samples) and SVF (first-order and exact)."""
+def reg_step_readings(fixed, moving, acfg, scfg, dev, steps=5, batch=1):
+    """Launches per Adam step, device and wall ms per step (and wall per
+    pair) and the busy share at every pyramid level of the preset, affine
+    (rigid, strided MI where the level has the samples) and SVF
+    (first-order and exact), with the pair stacked ``batch`` times as one
+    batch (timing needs no distinct pairs); and the peak memory."""
     import torch
 
     from deepwmh_tpu_torch.registration.affine import _center_of_mass, _optimize_level
@@ -2161,33 +2266,44 @@ def reg_step_readings(fixed, moving, acfg, scfg, dev, steps=5):
     from deepwmh_tpu_torch.registration.similarity import downsample_mean, winsorize_rescale
     from deepwmh_tpu_torch.registration.svf import _optimize_svf_level
 
+    torch.cuda.reset_peak_memory_stats()
     f, m = winsorize_rescale(fixed.float()), winsorize_rescale(moving.float())
+    lead = ()
+    if batch > 1:
+        lead = (batch,)
+        f, m = (t.expand(lead + tuple(t.shape)).contiguous() for t in (f, m))
     sp = spacing_tensor(FLAGSHIP_SPACING, dev)
     center = _center_of_mass(f, sp)
     out = {}
+
+    def reading(shape, fn, **extra):
+        row = _profile_steps(fn, steps)
+        return dict(shape=list(shape[-3:]), **extra, **row,
+                    wall_ms_per_step_per_pair=row["wall_ms_per_step"] / batch)
+
     for shrink in acfg.shrinks:
         fs, ms = downsample_mean(f, shrink), downsample_mean(m, shrink)
-        stride = acfg.sample_stride if fs.numel() // acfg.sample_stride >= 4096 else 1
+        stride = acfg.sample_stride if math.prod(fs.shape[-3:]) // acfg.sample_stride >= 4096 \
+            else 1
         for mode, n in (("rigid", 6), ("affine", 12)):
-            p0 = torch.zeros(n, device=dev)
-            out["affine_%s_shrink%d" % (mode, shrink)] = dict(
-                shape=list(fs.shape), sample_stride=stride, **_profile_steps(
-                    lambda: _optimize_level(fs, ms, sp * shrink, sp * shrink, p0, center,
-                                            mode=mode, iters=steps, lr=0.05, metric="mi",
-                                            mi_bins=acfg.mi_bins, lncc_radius=4,
-                                            sample_stride=stride), steps))
+            p0 = torch.zeros(lead + (n,), device=dev)
+            out["affine_%s_shrink%d" % (mode, shrink)] = reading(
+                fs.shape, lambda: _optimize_level(fs, ms, sp * shrink, sp * shrink, p0, center,
+                                                  mode=mode, iters=steps, lr=0.05, metric="mi",
+                                                  mi_bins=acfg.mi_bins, lncc_radius=4,
+                                                  sample_stride=stride), sample_stride=stride)
     for shrink in scfg.shrinks:
         fs, ms = downsample_mean(f, shrink), downsample_mean(m, shrink)
-        v0 = torch.zeros((3,) + tuple(fs.shape), device=dev)
+        v0 = torch.zeros(lead + (3,) + tuple(fs.shape[-3:]), device=dev)
         for exact in (False, True):
-            out["svf_%s_shrink%d" % ("exact" if exact else "first_order", shrink)] = dict(
-                shape=list(fs.shape), **_profile_steps(
-                    lambda: _optimize_svf_level(fs, ms, v0, iters=steps, lr=scfg.lr,
-                                                n_squaring=scfg.n_squaring,
-                                                lncc_radius=scfg.lncc_radius,
-                                                bending=scfg.bending_weight,
-                                                sigma=scfg.smooth_sigma_vox,
-                                                exact_exp_grad=exact), steps))
+            out["svf_%s_shrink%d" % ("exact" if exact else "first_order", shrink)] = reading(
+                fs.shape, lambda: _optimize_svf_level(fs, ms, v0, iters=steps, lr=scfg.lr,
+                                                      n_squaring=scfg.n_squaring,
+                                                      lncc_radius=scfg.lncc_radius,
+                                                      bending=scfg.bending_weight,
+                                                      sigma=scfg.smooth_sigma_vox,
+                                                      exact_exp_grad=exact))
+    out["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
 
@@ -2240,11 +2356,18 @@ def reg_hot_loops(fixed, moving, scfg, acfg, dev):
     return {"level_shape": list(shape), "mi_samples": n_mi, **fwd, **both}
 
 
+REG_BATCH_PAIRS = 2  # the CLI's --batch-pairs: the 2 x 1 cohort's pairs as one batch
+REG_STEP_BATCHES = (1, 2, 4)
+
+
 def phase_group_register(kernels, work, smi):
     """The group CLI with the training-prep preset on a 2x1 flagship cohort
-    in a subprocess, the artifacts checked, a re-run that skips both
-    pairs; then one pair in this process stage by stage, the optimisers'
-    launches per step and busy share, and the hot loops' times."""
+    in a subprocess, at the default --batch-pairs 1 (one pair at a time)
+    and at --batch-pairs 2 (both pairs one batch), the artifacts of both
+    checked, a re-run that skips both pairs; then one pair in
+    this process stage by stage, the same pair as row 1 of a batch of two
+    against it, the optimisers' launches per step and busy share with the
+    pair stacked 1, 2 and 4 times, and the hot loops' times."""
     import torch
 
     from deepwmh_tpu_torch.core import nifti
@@ -2253,7 +2376,11 @@ def phase_group_register(kernels, work, smi):
         resample_moving,
         spacing_tensor,
     )
-    from deepwmh_tpu_torch.registration.group import GroupRegistration, _to_host
+    from deepwmh_tpu_torch.registration.group import (
+        GroupRegistration,
+        _pair_core_batch,
+        _to_host,
+    )
     from deepwmh_tpu_torch.registration.svf import _svf_core, apply_affine_svf
 
     root = os.path.join(work, "reg")
@@ -2262,14 +2389,22 @@ def phase_group_register(kernels, work, smi):
                                                   FLAGSHIP_SPACING, n_targets=1, seed=0,
                                                   device=DEVICE)
     setup_s = time.perf_counter() - t0
-    out = os.path.join(root, "out")
+    out_b1, out = os.path.join(root, "out_b1"), os.path.join(root, "out")
     for k in kernels.KERNELS.values():
         k.launches = 0
-    stdout, cli_s = _run_cli("deepwmh_tpu_torch.cli.group_register",
-                             ["-s", src_csv, "-t", tgt_csv, "-o", out] + REG_PRESET)
     pairs = ["src0_to_tgt0", "src1_to_tgt0"]
-    check("%d registration pair(s)" % len(pairs) in stdout
-          and stdout.count("registering") == len(pairs),
+    stdout_b1, cli_s = _run_cli("deepwmh_tpu_torch.cli.group_register",
+                                ["-s", src_csv, "-t", tgt_csv, "-o", out_b1] + REG_PRESET)
+    check("%d registration pair(s)" % len(pairs) in stdout_b1,
+          "group CLI output:\n%s" % stdout_b1[-2000:])
+    checks_b1 = _pair_checks(out_b1, cases, pairs, DEVICE)
+    stdout, cli_b2_s = _run_cli("deepwmh_tpu_torch.cli.group_register",
+                                ["-s", src_csv, "-t", tgt_csv, "-o", out, "--batch-pairs",
+                                 str(REG_BATCH_PAIRS)] + REG_PRESET)
+    # one batch: one "[2/2] registering [...]" line naming both pairs
+    chunk_lines = [line for line in stdout.splitlines() if "registering" in line]
+    check("%d registration pair(s)" % len(pairs) in stdout and len(chunk_lines) == 1
+          and all(p in chunk_lines[0] for p in pairs),
           "group CLI output:\n%s" % stdout[-2000:])
     checks = _pair_checks(out, cases, pairs, DEVICE)
     rerun_s = _rerun_registers_nothing(src_csv, tgt_csv, out, warm_start=False)
@@ -2298,7 +2433,37 @@ def phase_group_register(kernels, work, smi):
         paths, nifti.get_nifti_header(cases["tgt0"][0]), FLAGSHIP_SPACING, FLAGSHIP_SPACING,
         FLAGSHIP_SHAPE, *host), stage)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steps = reg_step_readings(fixed, moving, acfg, scfg, dev)
+
+    # the staged pair as row 1 of a batch of two (src0_to_tgt0 as row 0)
+    # against the staged one-pair run
+    moving0 = torch.from_numpy(nifti.load_nifti_simple(cases["src0"][0]).astype(np.float16)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    batch_stage = {}
+    bouts = _timed("pair_core_batch", lambda: _to_host(_pair_core_batch(
+        torch.stack([fixed, fixed]), torch.stack([moving0, moving]), sp, sp, acfg, scfg, True)),
+        batch_stage)
+    batch_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    label = torch.from_numpy(nifti.load_nifti_simple(cases["src1"][1])).to(dev)
+
+    def warped_brain(mat_, disp16_):
+        return apply_affine_svf(label, mat_, torch.from_numpy(disp16_).to(dev), FLAGSHIP_SHAPE,
+                                sp, sp, order=0).cpu().numpy() > 0.5
+
+    batched = {"pairs": ["src0_to_tgt0", "src1_to_tgt0"], "s": batch_stage["pair_core_batch"],
+               "peak_device_gb": batch_peak_gb,
+               "matrix_max_diff": float(np.abs(bouts[0][1] - host[0]).max()),
+               "disp_max_diff_vox": float(np.abs(bouts[2][1].astype(np.float32)
+                                                 - host[2].astype(np.float32)).max()),
+               "warped_brain_dice": _dice(warped_brain(bouts[0][1], bouts[2][1]),
+                                          warped_brain(host[0], host[2])),
+               "affine_loss": [float(bouts[1][1]), host[1]],
+               "svf_loss": [float(bouts[3][1]), host[3]]}
+    check(batched["warped_brain_dice"] >= REG_BRAIN_DICE_FLOOR
+          and np.isfinite(bouts[0]).all() and np.isfinite(bouts[4].astype(np.float32)).all(),
+          "the staged pair as a batch row: %r" % batched)
+    del bouts
+    steps = {"B%d" % b: reg_step_readings(fixed, moving, acfg, scfg, dev, batch=b)
+             for b in REG_STEP_BATCHES}
     hot = reg_hot_loops(fixed, moving, scfg, acfg, dev)
     launches = {name: k.launches for name, k in kernels.KERNELS.items()}
     check(all(v == 0 for v in launches.values()), "the SVF path launched a kernel: %r" % launches)
@@ -2306,11 +2471,13 @@ def phase_group_register(kernels, work, smi):
           "preset": REG_PRESET, "affine_cfg": [list(acfg.shrinks), list(acfg.iters)],
           "svf_cfg": [list(scfg.shrinks), list(scfg.iters), scfg.n_squaring,
                       scfg.exact_polish_iters],
-          "pairs": len(pairs), "setup_s": setup_s, "cli_wall_s": cli_s,
-          "s_per_pair_cli": cli_s / len(pairs), "rerun_s": rerun_s,
-          "staged_pair_s": stage, "staged_pair_sum_s": sum(stage.values()),
-          "staged_peak_device_gb": peak_gb, "pairs_checked": checks,
-          "steps": steps, "hot_loops_ms": hot})
+          "pairs": len(pairs), "batch_pairs": REG_BATCH_PAIRS, "setup_s": setup_s,
+          "cli_wall_s": cli_s, "s_per_pair_cli": cli_s / len(pairs),
+          "cli_wall_s_b2": cli_b2_s, "s_per_pair_cli_b2": cli_b2_s / len(pairs),
+          "rerun_s": rerun_s, "staged_pair_s": stage, "staged_pair_sum_s": sum(stage.values()),
+          "staged_peak_device_gb": peak_gb, "pairs_checked_b1": checks_b1,
+          "pairs_checked": checks,
+          "batched_pair": batched, "steps": steps, "hot_loops_ms": hot})
     return src_csv, tgt_csv, cases, out, {"s_per_pair": cli_s / len(pairs), "stage": stage}
 
 
@@ -2551,6 +2718,7 @@ E2E_SPACING = (2.0, 2.0, 2.0)
 # train_e2e's cut: the production plan at E2E_SHAPE, 4 / 6 epochs of 10 steps
 E2E_BUDGET = dict(stage2_epochs=4, stage3_epochs=6, batches_per_epoch=10)
 E2E_REFS, E2E_PATIENTS = 3, 2  # 6 svf pairs: auto resolves to svf; stage-1 keeps K = 3
+E2E_BATCH_PAIRS = E2E_REFS * E2E_PATIENTS  # the cohort's pairs registered as one batch
 STAGE1_RECALL_FLOOR = 0.9  # tests/test_train_pipeline_e2e.py's floors
 STAGE1_DICE_FLOOR = 0.15
 
@@ -2776,7 +2944,8 @@ def phase_train_e2e(kernels, work, smi, flair, pkg):
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    core = run_train(ref_csv, train_csv, out, budget=budget, device=DEVICE, stage_stats=stats)
+    core = run_train(ref_csv, train_csv, out, budget=budget, device=DEVICE, stage_stats=stats,
+                     batch_pairs=E2E_BATCH_PAIRS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.KERNELS.items()}
@@ -2845,7 +3014,7 @@ def phase_train_e2e(kernels, work, smi, flair, pkg):
                                   "plan.json"))
     row = {"phase": "train_e2e", "nvidia_smi": smi, "shape": list(E2E_SHAPE),
            "spacing": list(E2E_SPACING), "references": E2E_REFS, "patients": E2E_PATIENTS,
-           "registration_mode": mode, "budget": E2E_BUDGET,
+           "registration_mode": mode, "budget": E2E_BUDGET, "batch_pairs": E2E_BATCH_PAIRS,
            "plan": {"patch_size": plan.patch_size, "batch_size": plan.batch_size,
                     "num_pools": plan.num_pools, "widths": features_per_stage(plan)},
            "setup_s": setup_s, "wall_s": wall, "peak_device_gb": peak_gb,
@@ -4124,7 +4293,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=HERE) as work:
         launches, flair, pkg = run(phase_main_path, kernels, work, smi)
         run(phase_card_vs_cpu, kernels, work)
-        stage1_launches, stage1 = run(phase_stage1, kernels, work, smi)
+        stage1_launches, stage1, stage1_batch_launches = run(phase_stage1, kernels, work, smi)
         run(phase_serve, kernels, work, pkg, smi)
         mesh_launches = run(phase_mesh, kernels, work, smi, pkg, flair, stage1)
         run(phase_train, kernels, work, smi)
@@ -4150,6 +4319,8 @@ def main(argv=None) -> int:
     k1_entry["launches"] = launches["instance_norm_stats"]
     act_entry["launches"] = launches["instance_norm_act"]
     k2_entry["launches"] = stage1_launches["median3"]
+    # and on stage-1 over a case batch (phase stage1: two flagship cases, one launch)
+    k2_entry["batch_stage1_launches"] = stage1_batch_launches["median3"]
     learned_per = "one learned-registration forward on the %dx%dx%d template grid (%d calls)" % (
         template_grid(FLAGSHIP_SHAPE, FLAGSHIP_SPACING) + (k1_learned["learned_forward_calls"],))
     k1_entry.update(learned_launches=learned_launches["instance_norm_stats"],
@@ -4181,7 +4352,8 @@ def main(argv=None) -> int:
     for entry in (k1_entry, act_entry, k2_entry):
         entry["mesh_launches"] = mesh_launches[entry["name"]]
         entry["mesh_train_launches"] = mesh_train_launches[entry["name"]]
-    check(set(launches) == set(stage1_launches) == set(learned_launches) == set(train_launches)
+    check(set(launches) == set(stage1_launches) == set(stage1_batch_launches)
+          == set(learned_launches) == set(train_launches)
           == set(convert_launches) == set(dicom_launches) == set(mesh_launches)
           == set(mesh_train_launches) == {"instance_norm_stats", "instance_norm_act", "median3"},
           "unlisted kernels: %s" % sorted(launches))

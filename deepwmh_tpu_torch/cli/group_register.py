@@ -15,7 +15,8 @@ It runs on CUDA (``-g i`` picks ``cuda:i``); the CPU only with
 (of every process of a run joined by the ``DEEPWMH_*`` contract): the
 classic mode registers pair batches of ``--batch-pairs`` (raised to the
 mesh size) over it, the learned mode trains its network data parallel over
-it. Without a mesh pairs run one by one.
+it. Without a mesh same-geometry pairs run in batches of ``--batch-pairs``
+(default 1: one by one), each batch through one Adam loop a level.
 """
 
 from __future__ import annotations
@@ -71,8 +72,8 @@ def make_parser() -> argparse.ArgumentParser:
                         help="Shard pair batches (classic mode) or the network's training "
                         "(--learned) over every visible card; excludes -g / --device.")
     parser.add_argument("--batch-pairs", type=int, default=1,
-                        help="Register N same-geometry pairs at a time over the mesh "
-                        "(raised to the mesh size); without --mesh pairs run one by one.")
+                        help="Register N same-geometry pairs at a time as one batch "
+                        "(raised to the mesh size under --mesh).")
     parser.add_argument("-d", "--distributed", type=str, default=None,
                         help="'a/b': run shard a (1-based) of b machines.")
     parser.add_argument("--svf-warm-start", action="store_true",

@@ -359,8 +359,8 @@ def make_parser() -> argparse.ArgumentParser:
                         help="[Advanced] Override the 150 batches/epoch budget.")
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--batch-pairs", type=int, default=1,
-                        help="Register N same-geometry pairs at a time over the mesh "
-                        "(raised to the mesh size); without a mesh pairs run one by one.")
+                        help="Register N same-geometry pairs at a time as one batch "
+                        "(raised to the mesh size over a mesh).")
     parser.add_argument("--registration-mode", choices=["auto", "svf", "learned"],
                         default="auto",
                         help="'svf' optimises every pair, 'learned' trains one network "

@@ -1,9 +1,13 @@
 // 3x3x3 median with a constant-0 boundary, for Hopper (sm_90a).
 //
 // Replaces deepwmh_tpu/ops/pallas_kernels.py median3_pallas (body
-// _median3_kernel, network _median27): in [D, H, W] f32 -> out [D, H, W]
-// f32, out[z, y, x] = the median (rank 13 of 27) of in[z-1..z+1, y-1..y+1,
-// x-1..x+1], with zeros outside the volume.
+// _median3_kernel, network _median27): in [B, D, H, W] f32 -> out [B, D, H,
+// W] f32, out[b, z, y, x] = the median (rank 13 of 27) of in[b, z-1..z+1,
+// y-1..y+1, x-1..x+1], with zeros outside volume b (B = 1 is one volume;
+// a batch is what vmap of the Pallas kernel computes). One launch covers
+// the batch: blockIdx.z is (b, depth chunk), and a chunk reads planes of
+// its own volume only, so plane D of volume b is a zero, never volume
+// b + 1's first plane.
 //
 // Defined on finite input. fminf/fmaxf drop a NaN where torch.sort puts it
 // last, so a window holding a NaN may give another value than the plain
@@ -86,7 +90,12 @@ __device__ __forceinline__ void sorted_slab(const Volume& v, int z, int y,
 
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
     median3_kernel(const float* __restrict__ in, float* __restrict__ out,
-                   int D, int H, int W) {
+                   int D, int H, int W, int chunks) {
+  // volume b of the batch, then its own depth chunk
+  const int b = blockIdx.z / chunks;
+  const size_t offset = (size_t)b * D * H * W;
+  in += offset;
+  out += offset;
   const Volume v{in, D, H, W};
   const int lane = threadIdx.x;
   const int x = blockIdx.x * 32 + lane;
@@ -96,7 +105,7 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
   // the other lanes' halo is outside the volume (zeros, unused)
   const int halo_x = lane == 0 ? x - 1 : (lane == 31 ? x + 1 : -1);
   const bool store = x < W;
-  const int z0 = blockIdx.z * kChunk;
+  const int z0 = (blockIdx.z - b * chunks) * kChunk;
 
   float prev[9], a[9];
   sorted_slab(v, z0 - 1, y, x, halo_x, lane, prev);
@@ -125,13 +134,16 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 }  // namespace
 
 // Returns the launch's error code: a grid beyond the card's limits
-// (more than 65535 blocks along H or D) is refused there.
-extern "C" int median3_f32(const void* in, void* out, int D, int H, int W,
-                           void* stream) {
+// (more than 65535 blocks along H, or along B x the depth chunks) is
+// refused there.
+extern "C" int median3_f32(const void* in, void* out, int B, int D, int H,
+                           int W, void* stream) {
+  const int chunks = (D + kChunk - 1) / kChunk;
   const dim3 grid((W + 31) / 32, (H + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                  (D + kChunk - 1) / kChunk);
+                  B * chunks);
   median3_kernel<<<grid, dim3(32, kWarpsPerBlock), 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out), D, H, W);
+      static_cast<const float*>(in), static_cast<float*>(out), D, H, W,
+      chunks);
   return (int)cudaGetLastError();
 }

@@ -110,29 +110,34 @@ def component_filtering(mask, voxel_size):
     """Per-slice brain-mask clean-up: for each filtered orientation erode
     every 2D slice (cross, zero border) and keep its largest component;
     the result is the union over orientations. Thick-slice data
-    (max/min pixdim > 3) filters only the thick axis."""
+    (max/min pixdim > 3) filters only the thick axis. A batch of cases
+    [B, D, H, W] is labelled together, its cases as further slices (the
+    connectivity stays in-plane), so one labelling serves every case: its
+    rounds, one host sync each, are the most any slice of the batch needs."""
     pv = [float(v) for v in voxel_size]
     if max(pv) / min(pv) > 3.0:
         do_filtering = [ax == int(np.argmax(pv)) for ax in range(3)]
     else:
         do_filtering = [True, True, True]
     m = (mask > 0.5).float()
+    lead = m.dim() - 3
     union = torch.zeros_like(m)
     for ax in range(3):
         if do_filtering[ax]:
-            inplane = tuple(a for a in range(3) if a != ax)
-            union = union + largest_component(binary_erosion_2d(m, slice_axis=ax), axes=inplane)
+            inplane = tuple(lead + a for a in range(3) if a != ax)
+            union = union + largest_component(binary_erosion_2d(m, slice_axis=lead + ax),
+                                              axes=inplane)
         else:
             union = union + m
     return (union > 0.5).float()
 
 
 def average_contiguous_labels(stack, num_classes: int):
-    """Majority vote over a [K, ...] stack of label maps with ids
+    """Majority vote over a [..., K, D, H, W] stack of label maps with ids
     0..num_classes-1; ties go to the lowest id (``torch.argmax`` returns
     the first maximum, like ``np.argmax``). Returns int64."""
     ilbl = stack.to(torch.int32)
-    counts = torch.stack([(ilbl == ch).float().sum(0) for ch in range(num_classes)])
+    counts = torch.stack([(ilbl == ch).float().sum(-4) for ch in range(num_classes)])
     return torch.argmax(counts, dim=0)
 
 

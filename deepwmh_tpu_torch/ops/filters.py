@@ -8,9 +8,11 @@ Window placement follows scipy: for size k the window spans
 
 The median is a rank filter (rank n//2 of the n window values, the upper
 middle for even n, as scipy takes it; ``torch.median`` would take the
-lower). A 3x3x3 median of a 3D volume goes to K2 (``kernels.median3``: the
-CUDA kernel for a CUDA tensor, its plain version on the CPU); every other
-size stacks the window into a leading axis and sorts it, on every device.
+lower). A 3x3x3 median of a 3D volume, or of a batch of them [B, D, H,
+W], goes to K2 (``kernels.median3``: the CUDA kernel for a CUDA tensor, one
+launch a batch, its plain version on the CPU); every other size stacks the
+window into a leading axis and sorts it, on every device (a batch volume
+by volume).
 """
 
 from __future__ import annotations
@@ -88,10 +90,14 @@ MEDIAN_STACK_BUDGET_BYTES = 2 * 1024**3
 
 def median_filter(data, kernel_size, max_stack_bytes: int = None):
     """scipy median_filter, constant-0 boundary: rank n//2 of the n window
-    values, in f32."""
-    ks = _norm_ksize(kernel_size, data.dim())
+    values, in f32. ``data`` [D, H, W], or a batch [B, D, H, W] with a 3D
+    ``kernel_size`` (each volume filtered on its own)."""
+    batch = data.dim() == 4 and not isinstance(kernel_size, int) and len(kernel_size) == 3
+    ks = _norm_ksize(kernel_size, 3 if batch else data.dim())
     if ks == (3, 3, 3):
         return kernels.median3(data.float().contiguous())
+    if batch:
+        return torch.stack([median_filter(d, ks, max_stack_bytes) for d in data])
     n = math.prod(ks)
     budget = MEDIAN_STACK_BUDGET_BYTES if max_stack_bytes is None else max_stack_bytes
     if data.dim() != 3 or n * data.numel() * 4 <= budget:
@@ -115,7 +121,7 @@ def median_3mm(data, physical_voxel_size):
     """3 mm median smoothing, anisotropy-aware. For anisotropic data
     (max/min pixdim > 4) a 2D kernel runs slice by slice across the thick
     axis; otherwise a 3D kernel. Kernel sizes are int(3 mm / pixdim),
-    at least 3 per axis."""
+    at least 3 per axis. ``data`` [D, H, W] or a batch [B, D, H, W]."""
     pv = [float(v) for v in physical_voxel_size]
     if max(pv) / min(pv) > 4.0:
         max_axis = int(np.argmax(pv))

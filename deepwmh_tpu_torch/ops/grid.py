@@ -12,7 +12,8 @@ zero-padded to a multiple of the (even) patch size, per-cell sums over
 half-patch cells come from a reshape-reduce, each overlapping patch is the
 sum of two adjacent cells per axis (the last patch on an axis covers one
 cell), and the coarse grid is zero-bordered, upsampled with the
-endpoint-aligned linear resize and cropped by the half-step offset.
+endpoint-aligned linear resize and cropped by the half-step offset. A batch
+of volumes on leading axes ([..., D, H, W]) is gridded volume by volume.
 """
 
 from __future__ import annotations
@@ -70,31 +71,34 @@ def mean_std_grid(data, patch_size, mask=None, order: int = 1):
     """Coarse local mean/std, upsampled to the input's shape.
 
     ``patch_size`` is 3 ints (voxels); odd sizes round up to even. With
-    ``mask`` only mask > 0.5 voxels count, and empty patches get
-    (mu, sigma) = (0, 1e-5). Returns (mean, std), both shaped like ``data``.
+    ``mask`` (shaped like ``data``) only mask > 0.5 voxels count, and empty
+    patches get (mu, sigma) = (0, 1e-5). Returns (mean, std), both shaped
+    like ``data`` [..., D, H, W].
     """
     data = data.float()
-    shape = tuple(data.shape)
+    lead = tuple(data.shape[:-3])
+    shape = tuple(data.shape[-3:])
     p = [2 * int(math.ceil(s / 2)) for s in patch_size]
     step = [pi // 2 for pi in p]
     padded = [pi * int(math.ceil(sh / pi)) for pi, sh in zip(p, shape)]
     widths = [ps - sh for ps, sh in zip(padded, shape)]
     G = [padded[i] // step[i] for i in range(3)]
-    cells = (G[0], step[0], G[1], step[1], G[2], step[2])
+    cells = lead + (G[0], step[0], G[1], step[1], G[2], step[2])
+    cell_axes = (-5, -3, -1)
 
     dpad = _pad_end(data, widths)
     if mask is not None:
         mpad = _pad_end((mask > 0.5).float(), widths)
-        cell_cnt = mpad.reshape(cells).sum((1, 3, 5))
+        cell_cnt = mpad.reshape(cells).sum(cell_axes)
         dview = (dpad * mpad).reshape(cells)
     else:
-        cell_cnt = torch.full(G, float(step[0] * step[1] * step[2]),
+        cell_cnt = torch.full(lead + tuple(G), float(step[0] * step[1] * step[2]),
                               dtype=torch.float32, device=data.device)
         dview = dpad.reshape(cells)
-    psum = dview.sum((1, 3, 5))
-    psq = torch.square(dview).sum((1, 3, 5))
+    psum = dview.sum(cell_axes)
+    psq = torch.square(dview).sum(cell_axes)
     pcnt = cell_cnt
-    for ax in range(3):
+    for ax in range(len(lead), len(lead) + 3):
         psum = _shift_add(psum, ax)
         psq = _shift_add(psq, ax)
         pcnt = _shift_add(pcnt, ax)
@@ -115,9 +119,9 @@ def mean_std_grid(data, patch_size, mask=None, order: int = 1):
     def upsample(grid):
         out = F.pad(grid, (1, 1, 1, 1, 1, 1))  # zero border
         for ax in range(3):
-            out = resize(out, ax, (G[ax] + 2) * step[ax])
+            out = resize(out, len(lead) + ax, (G[ax] + 2) * step[ax])
         off = [s // 2 for s in step]
-        return out[off[0]:off[0] + shape[0],
+        return out[..., off[0]:off[0] + shape[0],
                    off[1]:off[1] + shape[1],
                    off[2]:off[2] + shape[2]]
 

@@ -399,12 +399,13 @@ instance_norm_act = InstanceNormAct()
 
 
 def median3_reference(vol: torch.Tensor) -> torch.Tensor:
-    """Plain version of K2: the 3x3x3 median of ``vol`` [D, H, W] with
-    zeros outside, in f32: the 27 shifted views of the zero-padded volume
-    stacked on a leading axis, sorted, rank 13."""
-    D, H, W = vol.shape
+    """Plain version of K2: the 3x3x3 median of ``vol`` [D, H, W] (or of
+    each volume of a batch [B, D, H, W]) with zeros outside each volume, in
+    f32: the 27 shifted views of the zero-padded volumes stacked on a
+    leading axis, sorted, rank 13."""
+    D, H, W = vol.shape[-3:]
     padded = F.pad(vol.float(), (1, 1, 1, 1, 1, 1))
-    win = torch.stack([padded[dz:dz + D, dy:dy + H, dx:dx + W]
+    win = torch.stack([padded[..., dz:dz + D, dy:dy + H, dx:dx + W]
                        for dz in range(3) for dy in range(3) for dx in range(3)])
     return torch.sort(win, dim=0).values[13]
 
@@ -553,22 +554,23 @@ def median27_header() -> str:
 class Median3(CudaKernel):
     """K2 (replaces deepwmh_tpu/ops/pallas_kernels.py median3_pallas).
     ``vol`` [D, H, W] f32 -> a new [D, H, W] f32 tensor, zeros outside the
-    volume. On CUDA ``vol`` must be contiguous; the kernel is defined on
-    finite input."""
+    volume; a batch [B, D, H, W] (what ``vmap`` of the Pallas kernel
+    computes) in one launch, each volume with its own zero boundary. On CUDA
+    ``vol`` must be contiguous; the kernel is defined on finite input."""
 
     source = "median3.cu"
 
     def _bind(self, lib) -> None:
         lib.median3_f32.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p,
         ]
         lib.median3_f32.restype = ctypes.c_int
 
     def __call__(self, vol: torch.Tensor) -> torch.Tensor:
-        if vol.dim() != 3 or vol.dtype != torch.float32 or min(vol.shape) < 1:
-            raise ValueError("median3: need an f32 [D, H, W] tensor with every axis "
-                             ">= 1 (got %s %s)" % (vol.dtype, tuple(vol.shape)))
+        if vol.dim() not in (3, 4) or vol.dtype != torch.float32 or min(vol.shape) < 1:
+            raise ValueError("median3: need an f32 [D, H, W] or [B, D, H, W] tensor with "
+                             "every axis >= 1 (got %s %s)" % (vol.dtype, tuple(vol.shape)))
         if vol.device.type == "cpu":
             return median3_reference(vol)
         if vol.device.type != "cuda":
@@ -578,9 +580,10 @@ class Median3(CudaKernel):
                              % (vol.stride(),))
         lib = self.lib()
         out = torch.empty_like(vol)
-        D, H, W = vol.shape
-        err = _on_device(vol.device, lib.median3_f32, vol.data_ptr(), out.data_ptr(), D, H,
-                         W, _current_stream(vol.device))
+        B = vol.shape[0] if vol.dim() == 4 else 1
+        D, H, W = vol.shape[-3:]
+        err = _on_device(vol.device, lib.median3_f32, vol.data_ptr(), out.data_ptr(), B, D,
+                         H, W, _current_stream(vol.device))
         if err:
             raise RuntimeError("median3: launch failed, CUDA error %d" % err)
         self._count()

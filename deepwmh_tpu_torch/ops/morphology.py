@@ -34,9 +34,10 @@ def _dilate(m, axes):
 
 def binary_erosion_2d(mask, slice_axis: int, iterations: int = 1):
     """Erode every 2D slice across ``slice_axis`` with the 2D cross, zero
-    border, all slices at once."""
+    border, all slices at once. A batch [B, D, H, W] erodes only across its
+    last three axes (``slice_axis`` counts from the first of the four)."""
     m = mask > 0.5
-    axes = tuple(a for a in range(mask.dim()) if a != slice_axis)
+    axes = tuple(a for a in range(max(mask.dim() - 3, 0), mask.dim()) if a != slice_axis)
     for _ in range(iterations):
         m = _erode(m, axes)
     return m.float()

@@ -34,7 +34,9 @@ side (sweeps, halo exchange) runs on a mesh of one process.
 
 from __future__ import annotations
 
+import contextlib
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -320,6 +322,46 @@ def all_gather(mesh: Mesh, parts) -> torch.Tensor:
     parts = gather_shards(mesh, parts)
     dev = mesh.home
     return torch.stack([to_device(p, dev) for p in parts])
+
+
+def map_blocks(mesh: Mesh, stacks, fn) -> tuple:
+    """Data parallelism over a leading batch axis: the host tensors
+    ``stacks`` [B, ...] are padded to a multiple of the mesh size by
+    repeating the last row (each block gathered alone, no padded copy of a
+    stack), and shard d's contiguous block of rows goes through
+    ``fn(device, *blocks)``, which returns a tuple of host arrays
+    or tensors with the block's leading axis (``None`` for a field it does
+    not fill). The shards of one device run in order, each distinct device
+    on a thread of its own; this process computes only its own shards. Each
+    field is gathered across processes in shard order and the padding
+    dropped, so every process returns all B rows as host tensors."""
+    n, B = mesh.size, int(stacks[0].shape[0])
+    rows = -(-B // n)
+
+    def run(dev, shards):
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            out = {}
+            for d in shards:
+                idx = torch.arange(d * rows, (d + 1) * rows).clamp(max=B - 1)
+                out[d] = fn(dev, *(a[idx] for a in stacks))
+            return out
+
+    by_device = {}
+    for d in mesh.local_shards:
+        by_device.setdefault(mesh.devices[d], []).append(d)
+    per_shard = {}
+    with ThreadPoolExecutor(max_workers=len(by_device)) as pool:
+        for done in [pool.submit(run, dev, shards) for dev, shards in by_device.items()]:
+            per_shard.update(done.result())
+    out = []
+    for k in range(len(per_shard[mesh.local_shards[0]])):
+        if per_shard[mesh.local_shards[0]][k] is None:
+            out.append(None)
+            continue
+        parts = [torch.as_tensor(per_shard[d][k]).cpu() if d in per_shard else None
+                 for d in range(n)]
+        out.append(torch.cat([p.cpu() for p in gather_shards(mesh, parts)])[:B])
+    return tuple(out)
 
 
 def barrier(mesh: Mesh) -> None:

@@ -10,12 +10,18 @@ Per case, on one device:
   histograms -> zero-crossing auto-threshold -> cerebellum/brainstem 3 mm
   median (K2 at a 3x3x3 kernel) -> majority-vote tissue masking.
 
+``nll_analysis_core`` takes one case or a batch of same-geometry cases on a
+leading axis (``nll_analysis_batch``, the port of JAX's ``vmap`` of the
+core): every stage runs over the case axis at once, each case with its own
+statistics, bins and threshold, and K2 filters the batch in one launch.
+
 ``LesionAnalyzer`` handles the NIfTI I/O, the idempotent artifacts and the
 per-case summary, with the JAX package's output contract (anomaly_score /
 valid_mask / normalized_input / averaged_label / preprocessed_image /
-segmentation[_pp] / summary.json + segmentation.txt). Over a device mesh
-(``analyze_and_do_segmentation(mesh=)``) the cases are dealt over the
-shards, each analysed whole on its shard's device.
+segmentation[_pp] / summary.json + segmentation.txt). ``batch_cases`` runs
+same-geometry chunks as batches; over a device mesh
+(``analyze_and_do_segmentation(mesh=)``) a chunk's batch is split into a
+block of cases a shard, each block one batch on its shard's device.
 """
 
 from __future__ import annotations
@@ -47,8 +53,8 @@ from deepwmh_tpu_torch.ops.histogram import (
     otsu_threshold,
 )
 from deepwmh_tpu_torch.ops.nll import nll, nll_from_moments
-from deepwmh_tpu_torch.ops.stats import group_mean, z_score
-from deepwmh_tpu_torch.parallel.mesh import Mesh
+from deepwmh_tpu_torch.ops.stats import SPATIAL, group_mean, z_score
+from deepwmh_tpu_torch.parallel.mesh import Mesh, map_blocks
 from deepwmh_tpu_torch.utils.logging import SimpleTxtLog, TimeStamps
 from deepwmh_tpu_torch.utils.parallel import run_parallel
 
@@ -86,8 +92,9 @@ def _stage(stage_s, name, device):
 
 
 def _fill_background(t, m_rough):
-    """Voxels outside the rough brain take the tissue minimum."""
-    tissue_min = torch.where(m_rough > 0.5, t, torch.inf).min()
+    """Voxels outside the rough brain take the tissue minimum (each
+    volume's own; ``m_rough`` broadcasts against ``t``)."""
+    tissue_min = torch.where(m_rough > 0.5, t, torch.inf).amin(SPATIAL, keepdim=True)
     return torch.where(m_rough < 0.5, tissue_min, t)
 
 
@@ -108,16 +115,22 @@ def nll_analysis_core(
     stage_s=None,
 ):
     """x_raw [D, H, W]; refs_raw / label1s / label2s [K, D, H, W], all on
-    one device and registered to the target.
+    one device and registered to the target; or a batch of B same-geometry
+    cases, x_raw [B, D, H, W] and the cohorts [B, K, D, H, W].
 
     Returns (anomaly, valid_mask, normalized_input, averaged_label, curve_x,
-    curve_y, curve_r, curve_rs, threshold), tensors on that device. With
-    debug=True a dict of intermediates is appended: the per-voxel intensity
-    threshold back-solved from the anomaly threshold, the rough brain mask,
-    the local mean, the cohort mean and std, and the aligned references
-    with their anomaly maps. With ``stage_s`` a dict, the device seconds of
-    each stage are added to it."""
-    K = refs_raw.shape[0]
+    curve_y, curve_r, curve_rs, threshold), tensors on that device (each
+    with a leading B for a batch). With debug=True a dict of intermediates
+    is appended: the per-voxel intensity threshold back-solved from the
+    anomaly threshold, the rough brain mask, the local mean, the cohort
+    mean and std, and the aligned references with their anomaly maps. With
+    ``stage_s`` a dict, the device seconds of each stage are added to it.
+
+    In a batch every statistic is a case's own: the K axis is the fourth
+    from the end, minima, moments, bins and thresholds are taken over each
+    volume's spatial axes, and the component filtering labels the B cases
+    together as further slices (``component_filtering``)."""
+    K = refs_raw.shape[-4]
 
     def stage(name):
         return _stage(stage_s, name, x_raw.device)
@@ -125,27 +138,30 @@ def nll_analysis_core(
     with stage("mask_zscore_otsu"):
         # rough brain mask: the cohort's label1 majority
         m_rough = (group_mean((label1s > 0.5).float()) > 0.5).float()
+        m_cohort = m_rough.unsqueeze(-4)  # against a [..., K, D, H, W] stack
         x = z_score(x_raw.float(), mask=m_rough)
         if apply_otsu:
-            otsu_thr = otsu_threshold(torch.where(m_rough < 0.5, x.min(), x))
-            m_otsu = (x > otsu_thr).float()
+            x_min = x.amin(SPATIAL, keepdim=True)
+            otsu_thr = otsu_threshold(torch.where(m_rough < 0.5, x_min, x))
+            m_otsu = (x > otsu_thr[..., None, None, None]).float()
         else:
             m_otsu = torch.ones_like(x)
         m_valid = m_rough * m_otsu
         x = _fill_background(x, m_rough)
-        refs = torch.stack([_fill_background(z_score(r.float(), mask=m_rough), m_rough)
-                            for r in refs_raw])
+        refs = _fill_background(z_score(refs_raw.float(), mask=m_cohort), m_cohort)
 
     with stage("local_mean_alignment"):
         x_mu, _ = mean_std_grid(x, patch_size, mask=m_valid)
         if mean_correction:
-            refs = torch.stack([r - mean_std_grid(r, patch_size, mask=m_valid)[0] + x_mu
-                                for r in refs])
+            refs = (refs - mean_std_grid(refs, patch_size,
+                                         mask=m_valid.unsqueeze(-4).expand_as(refs))[0]
+                    + x_mu.unsqueeze(-4))
 
     with stage("nll"):
         # the target and every reference, each scored against the full cohort
         anomaly, x_mean, x_std = nll(x, refs, min_std=MIN_STD, side=side, return_all=True)
-        anomaly_refs = nll_from_moments(refs, x_mean, x_std, side) * m_valid
+        anomaly_refs = (nll_from_moments(refs, x_mean.unsqueeze(-4), x_std.unsqueeze(-4), side)
+                        * m_valid.unsqueeze(-4))
 
     with stage("component_filtering"):
         anomaly = anomaly * component_filtering(m_valid, voxel_size)
@@ -158,7 +174,7 @@ def nll_analysis_core(
         avg_label = average_contiguous_labels(label2s, num_label_classes).float()
         anomaly = anomaly * (avg_label > 0.5).float()
         cb_mask = (avg_label > 1.5) & (avg_label < 2.5)
-        tissue_majority = ((label2s > 0.5).float().sum(0) > K / 2.0).float()
+        tissue_majority = ((label2s > 0.5).float().sum(-4) > K / 2.0).float()
 
     with stage("median_3mm"):
         anomaly_cb = median_3mm(anomaly, voxel_size)
@@ -171,7 +187,7 @@ def nll_analysis_core(
         return base
     # thr = (t - mu)^2 / (2 sigma^2) + log(sigma * 2.506) solved for t on the
     # '+' side; a negative discriminant gives NaN (no intensity reaches it)
-    d = 2.0 * (threshold - torch.log(x_std * 2.506))
+    d = 2.0 * (threshold[..., None, None, None] - torch.log(x_std * 2.506))
     x_thr = x_mean + x_std * torch.sqrt(torch.where(d < 0, torch.nan, d))
     dbg = {
         "intensity_thr": x_thr * m_valid,
@@ -183,6 +199,52 @@ def nll_analysis_core(
         "ref_anomaly": anomaly_refs,
     }
     return base + (dbg,)
+
+
+def nll_analysis_batch(xs, refs, l1s, l2s, *, patch_size, voxel_size, num_label_classes,
+                       side="+", apply_otsu=True, mean_correction=True, mesh=None, device=None):
+    """Stage-1 for a batch of same-geometry cases, JAX's
+    ``nll_analysis_batch``: xs [B, D, H, W]; refs / l1s / l2s [B, K, D, H,
+    W]. Returns ``nll_analysis_core``'s tuple with a leading B.
+
+    Without ``mesh`` the batch runs as one ``nll_analysis_core`` call on the
+    inputs' device (host arrays go to ``device``: CUDA unless the CPU is
+    asked for). With ``mesh`` (a ``parallel.mesh.Mesh``) the batch is
+    padded to a multiple of the mesh size by repeating the last case, shard
+    d runs its contiguous block of cases as one batch on its device (a
+    block of one as the one-case core; ``parallel.mesh.map_blocks``), the
+    blocks are gathered in shard order on the host and the padding
+    dropped. ``num_label_classes`` is the batch's: cases that disagree are
+    split by the caller."""
+    shapes = [tuple(np.shape(a)) for a in (xs, refs, l1s, l2s)]
+    if (len(shapes[0]) != 4 or any(len(s) != 5 for s in shapes[1:])
+            or len({s[:1] + s[2:] for s in shapes[1:]} | {shapes[0]}) != 1
+            or len({s[1] for s in shapes[1:]}) != 1):
+        raise ValueError("nll_analysis_batch: need xs [B, D, H, W] and refs / l1s / l2s "
+                         "[B, K, D, H, W] of one geometry (got %s)" % (shapes,))
+    kw = dict(patch_size=patch_size, voxel_size=voxel_size,
+              num_label_classes=num_label_classes, side=side, apply_otsu=apply_otsu,
+              mean_correction=mean_correction)
+
+    def upload(a, dev):
+        if torch.is_tensor(a):
+            return a.to(dev)
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    if mesh is None:
+        dev = xs.device if torch.is_tensor(xs) else resolve_device(device)
+        return nll_analysis_core(*(upload(a, dev) for a in (xs, refs, l1s, l2s)), **kw)
+    if not isinstance(mesh, Mesh):
+        raise TypeError("mesh must be a deepwmh_tpu_torch.parallel.mesh.Mesh, got %r" % (mesh,))
+
+    def run(dev, *block):
+        block = [a.to(dev) for a in block]
+        if block[0].shape[0] == 1:  # the one-case core, whose bits a case alone gets
+            return [o.cpu()[None] for o in nll_analysis_core(*(a[0] for a in block), **kw)]
+        return [o.cpu() for o in nll_analysis_core(*block, **kw)]
+
+    cpu = torch.device("cpu")
+    return map_blocks(mesh, [upload(a, cpu) for a in (xs, refs, l1s, l2s)], run)
 
 
 def patch_size_from_voxel(voxel_size):
@@ -313,9 +375,11 @@ class LesionAnalyzer:
             return min(8, per_device)
         return min(4 * n_devices, max(1, per_device) * n_devices)
 
-    def _mesh_chunks(self, todo, mesh, batch_cases, debug):
-        """Chunks of same-geometry cases (shape, spacing, K), sized by
-        ``_auto_batch_cases`` for 'auto'."""
+    def _chunks(self, todo, batch_cases, debug, mesh=None):
+        """Chunks of same-geometry cases (shape, spacing, K): ``batch_cases``
+        a chunk; 'auto' is one case at a time without a mesh (batching pays
+        where the cases spread over a mesh, as in the JAX package) and
+        ``_auto_batch_cases`` with one."""
         groups = {}
         for case in todo:
             info = self.data_dict[case]
@@ -325,7 +389,7 @@ class LesionAnalyzer:
         chunks = []
         for (shape, _voxel, K), cases in groups.items():
             if batch_cases == "auto":
-                B = self._auto_batch_cases(shape, K, mesh.size)
+                B = 1 if mesh is None else self._auto_batch_cases(shape, K, mesh.size)
             else:
                 B = max(int(batch_cases), 1)
             if debug:
@@ -333,44 +397,52 @@ class LesionAnalyzer:
             chunks += [cases[i:i + B] for i in range(0, len(cases), B)]
         return chunks
 
-    def _analyze_chunk(self, chunk, loaded, devices, intensity_prior, debug):
-        """Case i of the chunk on ``devices[i % len(devices)]``; the cases of
-        one device in order, each distinct card on a thread of its own.
-        Returns [(AnalysisResult, header)] in chunk order."""
-        by_device = {}
-        for i in range(len(chunk)):
-            by_device.setdefault(devices[i % len(devices)], []).append(i)
-
-        def run(dev, idxs):
-            out = []
-            for i in idxs:
+    def _analyze_chunk_batched(self, chunk, loaded, intensity_prior, debug, mesh=None):
+        """A chunk of same-geometry cases: split by ``num_label_classes``
+        (one batch must share it), a group of one through ``analyze_case``
+        on the analyzer's device, a larger one as one ``nll_analysis_batch``
+        (on the analyzer's device, or over ``mesh``: a block of cases a
+        shard). Returns [(AnalysisResult, header)] in chunk order."""
+        groups = {}
+        for i, ld in enumerate(loaded):
+            groups.setdefault(int(np.max(ld[5].astype(np.int64))) + 1, []).append(i)
+        results = [None] * len(chunk)
+        for num_classes, idxs in groups.items():
+            if len(idxs) == 1:
+                i = idxs[0]
                 self.log("analyzing case %s" % chunk[i])
                 result, hdr, _ = self.analyze_case(chunk[i], intensity_prior=intensity_prior,
-                                                   loaded=loaded[i], debug=debug, device=dev)
-                out.append((i, (result, hdr)))
-            return out
-
-        if len(by_device) == 1:
-            done = run(*next(iter(by_device.items())))
-        else:
-            with ThreadPoolExecutor(max_workers=len(by_device)) as pool:
-                futures = [pool.submit(run, dev, idxs) for dev, idxs in by_device.items()]
-                done = [r for f in futures for r in f.result()]
-        return [res for _, res in sorted(done, key=lambda r: r[0])]
+                                                   loaded=loaded[i], debug=debug)
+                results[i] = (result, hdr)
+                continue
+            self.log("analyzing cases %s (one batch)" % ", ".join(chunk[i] for i in idxs))
+            voxel_size = loaded[idxs[0]][2]
+            out = nll_analysis_batch(
+                *(np.stack([loaded[i][k] for i in idxs]) for k in (0, 3, 4, 5)),
+                patch_size=patch_size_from_voxel(voxel_size), voxel_size=voxel_size,
+                num_label_classes=num_classes, side=intensity_prior, mesh=mesh,
+                device=self.device)
+            out = [_numpy(o) for o in out]
+            for j, i in enumerate(idxs):
+                results[i] = (AnalysisResult(*(o[j] for o in out[:8]), float(out[8][j])),
+                              loaded[i][1])
+        return results
 
     def analyze_and_do_segmentation(self, intensity_prior="+", do_postprocessing=True,
                                     debug=False, batch_cases="auto", mesh=None):
         """Analyse every case without a summary.json, then segment every
         case whose segmentation is missing.
 
-        Without ``mesh`` the cases run one after another on the analyzer's
-        device (the next case's files are read while the current one
-        computes). With ``mesh`` (a ``parallel.mesh.Mesh``: stage-1 over a
-        mesh) same-geometry cases form chunks of ``batch_cases`` ('auto':
-        ``_auto_batch_cases(shape, K, mesh.size)``), whose cases are dealt
-        over the shards in order, one case a shard at a time. Either way
-        each case gives the one-by-one run's artifacts: the port runs no
-        vmapped batch of cases."""
+        Same-geometry cases form chunks of ``batch_cases`` (``_chunks``:
+        'auto' is 1 without a mesh, ``_auto_batch_cases(shape, K,
+        mesh.size)`` with one; ``debug`` forces 1); the next chunk's files
+        are read while the current one computes. A chunk of several cases
+        runs as one batch (``_analyze_chunk_batched``; the JAX package's
+        ``vmap``): on the analyzer's device, or with ``mesh`` (a
+        ``parallel.mesh.Mesh``: stage-1 over a mesh) through
+        ``nll_analysis_batch(mesh=)``, each shard's block of cases one batch
+        on its device. Every path writes the one-case path's artifacts, so a
+        run resumes another's."""
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError("mesh must be a deepwmh_tpu_torch.parallel.mesh.Mesh, got %r"
                             % (mesh,))
@@ -386,10 +458,7 @@ class LesionAnalyzer:
             else:
                 todo.append(case)
 
-        if mesh is None:
-            chunks, devices = [[case] for case in todo], [self.device]
-        else:
-            chunks, devices = self._mesh_chunks(todo, mesh, batch_cases, debug), mesh.devices
+        chunks = self._chunks(todo, batch_cases, debug, mesh)
 
         def load_chunk(cases):
             return [self._load_case(c) for c in cases]
@@ -400,7 +469,8 @@ class LesionAnalyzer:
                 loaded = future.result()
                 if i + 1 < len(chunks):  # read the next chunk while this one runs
                     future = pool.submit(load_chunk, chunks[i + 1])
-                results = self._analyze_chunk(chunk, loaded, devices, intensity_prior, debug)
+                results = self._analyze_chunk_batched(chunk, loaded, intensity_prior, debug,
+                                                      mesh)
                 for case, (result, hdr) in zip(chunk, results):
                     self._save_case_artifacts(case, result, hdr, intensity_prior)
 

@@ -21,9 +21,9 @@ backward). The sweeps of stages 2-4 and 3-5 run one inference model on K1
 under ``torch.inference_mode``; stage 2-4 loads each ensemble epoch's
 weights into it in place. Every phase that runs records its seconds (and
 its peak device memory on a card) in ``stage_stats``. With ``mesh`` (a
-``parallel.mesh.Mesh``) stage I deals its cases over the mesh's shards
-and every Trainer takes data-parallel steps over it; the sweeps of stages
-2-4 and 3-5 stay on one device, as in the JAX package.
+``parallel.mesh.Mesh``) stage I runs its cases a block a shard and every
+Trainer takes data-parallel steps over it; the sweeps of stages 2-4 and
+3-5 stay on one device, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -12,11 +12,19 @@ physical coordinates (the pull-back convention of ITK/ANTs), physical =
 voxel * spacing. Rigid stage: rotation angles + translation about the fixed
 image's centre of mass; affine stage: a full 3x3 perturbation initialised
 from the rigid fit, at half the learning rate.
+
+The core also takes a batch of same-geometry pairs on a leading axis
+([B,D,H,W] volumes, shared spacings; the port of JAX's ``vmap`` of the
+core): one Adam loop a level for all B pairs, [B, n] parameters with an
+optimiser state each, the differentiated loss the sum of the per-pair
+losses (so pair b's gradient is its own loss'), every reduction and every
+size rule per pair. A level returns the last step's loss of each pair, [B].
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -60,74 +68,86 @@ def _phys_grid(shape, spacing) -> torch.Tensor:
 
 def resample_moving(moving, matrix, fixed_shape, fixed_spacing, moving_spacing, order=1):
     """Resample ``moving`` onto the fixed grid through a physical 3x4 affine
-    (fixed phys -> moving phys); spacings are f32 [3] tensors."""
-    A, t = matrix[:, :3], matrix[:, 3]
+    (fixed phys -> moving phys); spacings are f32 [3] tensors. A batch:
+    ``moving`` [B, ...] through ``matrix`` [B, 3, 4]."""
+    A, t = matrix[..., :3], matrix[..., 3]
     grid = _phys_grid(fixed_shape, fixed_spacing).reshape(3, -1)
-    mov_vox = (A @ grid + t[:, None]) / moving_spacing.reshape(3, 1)
-    return sample_volume(moving, mov_vox.reshape((3,) + tuple(fixed_shape)), order=order)
+    mov_vox = (A @ grid + t[..., None]) / moving_spacing.reshape(3, 1)
+    return sample_volume(moving, mov_vox.reshape(tuple(matrix.shape[:-2]) + (3,)
+                                                 + tuple(fixed_shape)), order=order)
 
 
 def _params_to_matrix(params, center, mode: str) -> torch.Tensor:
     """mode 'rigid': params = [3 angles, 3 trans]; mode 'affine': params =
-    [9 linear perturbation, 3 trans], composed about ``center``."""
+    [9 linear perturbation, 3 trans], composed about ``center``. A batch:
+    params [B, n] and centers [B, 3] give [B, 3, 4]."""
     if mode == "rigid":
-        R = rotation_matrix(params[:3])
-        t = params[3:6]
+        R = rotation_matrix(params[..., :3])
+        t = params[..., 3:6]
     else:
-        R = torch.eye(3, device=params.device) + params[:9].reshape(3, 3)
-        t = params[9:12]
+        R = torch.eye(3, device=params.device) + params[..., :9].reshape(
+            tuple(params.shape[:-1]) + (3, 3))
+        t = params[..., 9:12]
     # x_mov = R @ (x_fix - c) + c + t
-    offset = center - R @ center + t
-    return torch.cat([R, offset[:, None]], dim=1)
+    offset = center - (R @ center[..., None])[..., 0] + t
+    return torch.cat([R, offset[..., None]], dim=-1)
 
 
 def _center_of_mass(x, spacing) -> torch.Tensor:
-    g = _phys_grid(x.shape, spacing)
+    """[3] physical centre of mass of x [D,H,W]; [B, 3] of a batch."""
+    g = _phys_grid(x.shape[-3:], spacing)
     w = torch.clamp(x, min=0.0)
-    total = torch.clamp(w.sum(), min=1e-8)
-    return torch.stack([(g[i] * w).sum() / total for i in range(3)])
+    dims = (-3, -2, -1)
+    total = torch.clamp(w.sum(dims), min=1e-8)
+    return torch.stack([(g[i] * w).sum(dims) / total for i in range(3)], -1)
 
 
 def _optimize_level(fixed, moving, fixed_spacing, moving_spacing, params0, center,
                     mode: str, iters: int, lr: float, metric: str, mi_bins: int,
                     lncc_radius: int, sample_stride: int = 1):
     """``iters`` Adam steps of one pyramid level; returns (params, last
-    loss), both on the device, having waited for neither."""
+    loss), both on the device, having waited for neither. A batch
+    (``fixed`` [B,D,H,W]) steps every pair at once on the sum of its
+    losses and returns the last loss of each, [B]."""
+    batch = fixed.dim() == 4
+    shape = tuple(fixed.shape[-3:])
     if metric == "mi" and sample_stride > 1:
         # strided voxel sampling: the moving image is resampled and the
         # joint histogram binned only at every sample_stride-th fixed voxel
-        grid_phys = _phys_grid(fixed.shape, fixed_spacing).reshape(3, -1)[:, ::sample_stride]
-        fixed_samp = fixed.reshape(-1)[::sample_stride]
+        grid_phys = _phys_grid(shape, fixed_spacing).reshape(3, -1)[:, ::sample_stride]
+        fixed_samp = fixed.reshape(tuple(fixed.shape[:-3]) + (-1,))[..., ::sample_stride]
         msp = moving_spacing.reshape(3, 1)
 
         def loss_fn(params):
             mat = _params_to_matrix(params, center, mode)
-            A, t = mat[:, :3], mat[:, 3]
-            vals = sample_volume(moving, (A @ grid_phys + t[:, None]) / msp)
-            return -mutual_information(fixed_samp, vals, nbins=mi_bins)
+            A, t = mat[..., :3], mat[..., 3]
+            vals = sample_volume(moving, (A @ grid_phys + t[..., None]) / msp)
+            return -mutual_information(fixed_samp, vals, nbins=mi_bins, batch=batch)
     else:
         def loss_fn(params):
             mat = _params_to_matrix(params, center, mode)
-            warped = resample_moving(moving, mat, fixed.shape, fixed_spacing, moving_spacing)
+            warped = resample_moving(moving, mat, shape, fixed_spacing, moving_spacing)
             if metric == "mi":
-                return -mutual_information(fixed, warped, nbins=mi_bins)
+                return -mutual_information(fixed, warped, nbins=mi_bins, batch=batch)
             return -lncc(fixed, warped, radius=lncc_radius)
 
     params = params0.detach().clone()
     opt = Adam([params], lr)
-    loss = torch.zeros((), device=params.device)
+    loss = torch.zeros(tuple(fixed.shape[:-3]), device=params.device)
     for _ in range(iters):
         with torch.enable_grad():
             p = params.detach().requires_grad_(True)
             loss = loss_fn(p)
-            (g,) = torch.autograd.grad(loss, p)
+            # the gradient of the sum of a batch's losses: each pair's own
+            (g,) = torch.autograd.grad(loss, p, torch.ones_like(loss))
         opt.step([g])
     return params, loss.detach()
 
 
 def feasible_levels(shrinks, iters, shape, min_dim: int = 8):
     """Drop pyramid levels too coarse for this volume (each level must keep
-    every axis >= min_dim); always keep at least the finest requested."""
+    every axis >= min_dim); always keep at least the finest requested.
+    ``shape`` is one pair's."""
     out_s, out_i = [], []
     for s, it in zip(shrinks, iters):
         if min(shape) // s >= min_dim:
@@ -141,16 +161,18 @@ def feasible_levels(shrinks, iters, shape, min_dim: int = 8):
 def _affine_core(fixed, moving, fsp, msp, cfg: AffineConfig):
     """The full rigid + affine pyramid of one pair: winsorize, centre-of-mass
     init, every level's Adam loop. Tensors on one device, spacings f32 [3];
-    returns (3x4 matrix, last loss) on the device."""
+    returns (3x4 matrix, last loss) on the device. A batch of pairs
+    [B,D,H,W] returns ([B,3,4], [B])."""
     fixed = winsorize_rescale(fixed)
     moving = winsorize_rescale(moving)
 
     center = _center_of_mass(fixed, fsp)
     com_m = _center_of_mass(moving, msp)
 
-    rigid_params = torch.cat([torch.zeros(3, device=fixed.device), com_m - center])
+    lead = tuple(center.shape[:-1])
+    rigid_params = torch.cat([torch.zeros(lead + (3,), device=fixed.device), com_m - center], -1)
     affine_params = None
-    final_loss = torch.zeros((), device=fixed.device)
+    final_loss = torch.zeros(lead, device=fixed.device)
 
     stages = (["rigid"] if cfg.do_rigid else []) + (["affine"] if cfg.do_affine else [])
     if not stages:
@@ -159,9 +181,9 @@ def _affine_core(fixed, moving, fsp, msp, cfg: AffineConfig):
     for mode in stages:
         if mode == "affine":
             if affine_params is None:
-                R = rotation_matrix(rigid_params[:3])
-                affine_params = torch.cat([(R - torch.eye(3, device=R.device)).reshape(-1),
-                                           rigid_params[3:6]])
+                R = rotation_matrix(rigid_params[..., :3])
+                affine_params = torch.cat([(R - torch.eye(3, device=R.device)).reshape(lead + (9,)),
+                                           rigid_params[..., 3:6]], -1)
             params = affine_params
         else:
             params = rigid_params
@@ -170,8 +192,9 @@ def _affine_core(fixed, moving, fsp, msp, cfg: AffineConfig):
             f = downsample_mean(fixed, shrink)
             m = downsample_mean(moving, shrink)
             # keep at least ~4k samples so coarse levels don't starve the
-            # 32x32 joint histogram
-            stride = cfg.sample_stride if f.numel() // cfg.sample_stride >= 4096 else 1
+            # 32x32 joint histogram (one pair's voxels, batch or not)
+            stride = (cfg.sample_stride if math.prod(f.shape[-3:]) // cfg.sample_stride >= 4096
+                      else 1)
             params, final_loss = _optimize_level(
                 f, m, fsp * shrink, msp * shrink, params, center,
                 mode=mode, iters=int(iters),
@@ -214,12 +237,15 @@ def register_affine(fixed, moving, fixed_spacing=(1.0, 1.0, 1.0),
 def register_affine_batch(fixed_stack, moving_stack, fixed_spacing=(1.0, 1.0, 1.0),
                           moving_spacing=(1.0, 1.0, 1.0), cfg: AffineConfig = None,
                           device=None):
-    """B (fixed, moving) pairs with shared spacings, one after another.
-    Returns (matrices [B,3,4], losses [B]) as numpy."""
-    out = [register_affine(f, m, fixed_spacing, moving_spacing, cfg, device)
-           for f, m in zip(fixed_stack, moving_stack)]
-    return (np.stack([m for m, _ in out]).astype(np.float32),
-            np.asarray([l for _, l in out], np.float32))
+    """B same-geometry (fixed, moving) pairs with shared spacings as one
+    batch through the core (one Adam loop a level for all B). Returns
+    (matrices [B,3,4], losses [B]) as numpy."""
+    dev = resolve_device(device)
+    cfg = feasible_affine_cfg(cfg or AffineConfig(), np.shape(fixed_stack)[1:])
+    mats, losses = _affine_core(_volume(fixed_stack, dev), _volume(moving_stack, dev),
+                                spacing_tensor(fixed_spacing, dev),
+                                spacing_tensor(moving_spacing, dev), cfg)
+    return mats.cpu().numpy(), losses.cpu().numpy()
 
 
 def apply_affine(moving, matrix, fixed_shape, fixed_spacing, moving_spacing, order=1,

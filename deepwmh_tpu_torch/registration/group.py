@@ -17,17 +17,18 @@ reads and resumes the other's):
 
 The numbers pass through the same casts as there: fixed and moving are
 uploaded as f16, the displacement and the warped image come back as f16.
-Without a mesh pairs run one by one (``batch_pairs`` is accepted for the
-CLI's sake). ``register_pairs_mesh`` spreads a batch of same-geometry pairs
-over a device mesh: shard d takes a contiguous block and runs its pairs one
-by one on its device (a thread a distinct card), so every pair gives the
-one-by-one launch's bits; ``launch(mesh=)`` sends each chunk of
-``batch_pairs`` same-geometry pairs through it.
+``_pair_core_batch`` registers B same-geometry pairs stacked on a leading
+axis through one Adam loop a level (the port of JAX's ``vmap`` of
+``_pair_core``): every launch of a step serves the B pairs.
+``launch(batch_pairs=B)`` buckets the remaining pairs by geometry and sends
+chunks of B through it (a chunk of one through ``_pair_core``).
+``register_pairs_mesh`` spreads a batch over a device mesh: shard d takes a
+contiguous block and runs it as one batch on its device (a thread a
+distinct card); ``launch(mesh=)`` sends each chunk through it.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -37,7 +38,7 @@ import torch
 from deepwmh_tpu_torch.core import nifti
 from deepwmh_tpu_torch.core.artifacts import atomic_write_json, join_path, load_json, mkdir
 from deepwmh_tpu_torch.device import resolve_device
-from deepwmh_tpu_torch.parallel.mesh import barrier, gather_shards
+from deepwmh_tpu_torch.parallel.mesh import barrier, map_blocks
 from deepwmh_tpu_torch.registration.affine import (
     AffineConfig,
     _affine_core,
@@ -59,16 +60,18 @@ def pair_name(source_case: str, target_case: str) -> str:
 def _pair_core(fixed, moving, fsp, msp, acfg, scfg, deformable):
     """One pair on the device: affine pyramid -> resample -> SVF pyramid ->
     final fused [affine, warp] resample. Returns (matrix, affine loss,
-    disp f16 or None, SVF loss or None, warped f16) as device tensors.
+    disp f16 or None, SVF loss or None, warped f16) as device tensors; for
+    a batch [B,D,H,W] (``_pair_core_batch``) each with a leading B.
     The inputs are made C-ordered first: the loops' sums follow the memory
     order, and equal values must give an equal pair whatever the layout."""
     fixed = fixed.float().contiguous()
     moving = moving.float().contiguous()
+    shape = tuple(fixed.shape[-3:])
     mat, aff_loss = _affine_core(fixed, moving, fsp, msp, acfg)
-    moving_on_fixed = resample_moving(moving, mat, fixed.shape, fsp, msp, order=1)
+    moving_on_fixed = resample_moving(moving, mat, shape, fsp, msp, order=1)
     if deformable:
         disp, svf_loss = _svf_core(fixed, moving_on_fixed, scfg)
-        warped = apply_affine_svf(moving, mat, disp, fixed.shape, fsp, msp, order=1)
+        warped = apply_affine_svf(moving, mat, disp, shape, fsp, msp, order=1)
         disp16 = disp.half()
     else:
         disp16, svf_loss = None, None
@@ -76,12 +79,39 @@ def _pair_core(fixed, moving, fsp, msp, acfg, scfg, deformable):
     return mat, aff_loss, disp16, svf_loss, warped.half()
 
 
+def _pair_core_batch(fixed, moving, fsp, msp, acfg, scfg, deformable):
+    """B same-geometry pairs [B,D,H,W] with shared spacings through one
+    Adam loop a level. Returns JAX's tuple layout with a leading B: (mats
+    [B,3,4], affine losses [B], disp16 [B,3,D,H,W] or None, SVF losses [B]
+    or None, warped16 [B,D,H,W]), device tensors. The configs are one
+    pair's (``feasible_*`` of [D,H,W])."""
+    if fixed.dim() != 4 or moving.dim() != 4 or fixed.shape[0] != moving.shape[0]:
+        raise ValueError("_pair_core_batch: need fixed and moving stacks [B, D, H, W] of B pairs "
+                         "(got %s and %s)" % (tuple(fixed.shape), tuple(moving.shape)))
+    return _pair_core(fixed, moving, fsp, msp, acfg, scfg, deformable)
+
+
 def _to_host(outs):
-    """A pair's device outputs as numpy / floats (the one wait per pair)."""
+    """A pair's device outputs as numpy / floats (the one wait per pair); a
+    batch's as numpy arrays with the leading B."""
     mat, aff_loss, disp16, svf_loss, warped16 = outs
-    return (mat.cpu().numpy(), float(aff_loss),
+    loss = float if aff_loss.dim() == 0 else (lambda t: t.cpu().numpy())
+    return (mat.cpu().numpy(), loss(aff_loss),
             None if disp16 is None else disp16.cpu().numpy(),
-            None if svf_loss is None else float(svf_loss), warped16.cpu().numpy())
+            None if svf_loss is None else loss(svf_loss), warped16.cpu().numpy())
+
+
+def _run_block(fixed16, moving16, fsp, msp, acfg, scfg, deformable, dev):
+    """A block of R same-geometry pairs (f16 host stacks [R,D,H,W]) on
+    ``dev``: one pair through ``_pair_core``, more as one
+    ``_pair_core_batch``. Returns host outputs with the leading R."""
+    fixed = torch.from_numpy(np.ascontiguousarray(fixed16)).to(dev)
+    moving = torch.from_numpy(np.ascontiguousarray(moving16)).to(dev)
+    if fixed.shape[0] > 1:
+        return _to_host(_pair_core_batch(fixed, moving, fsp, msp, acfg, scfg, deformable))
+    outs = _to_host(_pair_core(fixed[0], moving[0], fsp, msp, acfg, scfg, deformable))
+    return tuple(None if o is None else np.asarray(o, np.float32 if np.ndim(o) == 0 else None)[None]
+                 for o in outs)
 
 
 def register_pairs_mesh(fixed_stack, moving_stack, fixed_spacing, moving_spacing, mesh,
@@ -89,55 +119,24 @@ def register_pairs_mesh(fixed_stack, moving_stack, fixed_spacing, moving_spacing
     """Data-parallel pair registration over a ``parallel.mesh.Mesh``: the
     [B, D, H, W] stacks (cast to f16, as uploaded) are padded to a multiple
     of the mesh size by repeating the last pair, shard d takes a contiguous
-    block and runs its pairs one by one through ``_pair_core`` on its device,
-    a thread a distinct device; the padding is dropped. On a mesh across
-    processes each process registers its own shards' pairs and the outputs
-    are gathered, so every process returns all B rows. Returns JAX's tuple
-    layout on the host: (mats [B,3,4], affine losses [B], disp16
-    [B,3,D,H,W] or None, SVF losses [B] or None, warped16 [B,D,H,W])."""
-    n = mesh.size
-    B = int(np.shape(fixed_stack)[0])
-    pad = (-B) % n
-    fixed_stack = np.ascontiguousarray(fixed_stack, np.float16)
-    moving_stack = np.ascontiguousarray(moving_stack, np.float16)
-    if pad:
-        fixed_stack = np.concatenate([fixed_stack, np.repeat(fixed_stack[-1:], pad, axis=0)])
-        moving_stack = np.concatenate([moving_stack, np.repeat(moving_stack[-1:], pad, axis=0)])
-    shape = tuple(fixed_stack.shape[1:])
+    block of rows and runs it as one ``_pair_core_batch`` on its device (a
+    block of one through ``_pair_core``), a thread a distinct device; the
+    padding is dropped. On a mesh across processes each process registers
+    its own shards' blocks and the outputs are gathered, so every process
+    returns all B rows. Returns JAX's tuple layout on the host: (mats
+    [B,3,4], affine losses [B], disp16 [B,3,D,H,W] or None, SVF losses [B]
+    or None, warped16 [B,D,H,W])."""
+    shape = tuple(np.shape(fixed_stack)[1:])
     acfg = feasible_affine_cfg(affine_cfg or AffineConfig(), shape)
     scfg = _feasible_cfg(svf_cfg or SVFConfig(), shape)
-    rows = (B + pad) // n
 
-    def run_shards(dev, shards):
-        # a device's shards in order, its pairs one by one
-        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-            fsp, msp = spacing_tensor(fixed_spacing, dev), spacing_tensor(moving_spacing, dev)
-            return {d: [_to_host(_pair_core(
-                torch.from_numpy(fixed_stack[i]).to(dev),
-                torch.from_numpy(moving_stack[i]).to(dev),
-                fsp, msp, acfg, scfg, deformable)) for i in range(d * rows, (d + 1) * rows)]
-                for d in shards}
+    def run(dev, fixed16, moving16):
+        return _run_block(fixed16, moving16, spacing_tensor(fixed_spacing, dev),
+                          spacing_tensor(moving_spacing, dev), acfg, scfg, deformable, dev)
 
-    by_device = {}
-    for d in mesh.local_shards:
-        by_device.setdefault(mesh.devices[d], []).append(d)
-    per_shard = {}
-    with ThreadPoolExecutor(max_workers=len(by_device)) as pool:
-        for done in [pool.submit(run_shards, dev, shards) for dev, shards in by_device.items()]:
-            per_shard.update(done.result())
-
-    def gathered(k):
-        # field k of every pair, shard by shard, in global shard order
-        if per_shard[mesh.local_shards[0]][0][k] is None:
-            return None
-        parts = [None] * n
-        for d in mesh.local_shards:
-            parts[d] = torch.from_numpy(np.stack([np.asarray(o[k], np.float32)
-                                                  if np.ndim(o[k]) == 0 else o[k]
-                                                  for o in per_shard[d]]))
-        return torch.cat([p.cpu() for p in gather_shards(mesh, parts)]).numpy()[:B]
-
-    return tuple(gathered(k) for k in range(5))
+    stacks = [torch.from_numpy(np.ascontiguousarray(a, np.float16))
+              for a in (fixed_stack, moving_stack)]
+    return tuple(None if o is None else o.numpy() for o in map_blocks(mesh, stacks, run))
 
 
 class GroupRegistration:
@@ -253,14 +252,12 @@ class GroupRegistration:
         atomic_write_json(self._pair_meta(matrix, f_sp, m_sp, f_shape, aff_loss, svf_loss),
                           paths["affine"])
 
-    def _run_pair(self, fixed16, moving16, f_sp, m_sp, acfg, scfg):
-        """One pair from f16 host volumes to host outputs."""
+    def _run_chunk(self, fixed16, moving16, f_sp, m_sp, acfg, scfg):
+        """A chunk of same-geometry pairs (f16 host stacks) on the
+        registration's device -> host outputs with the leading chunk axis."""
         dev = self.device
-        outs = _pair_core(torch.from_numpy(np.ascontiguousarray(fixed16)).to(dev),
-                          torch.from_numpy(np.ascontiguousarray(moving16)).to(dev),
-                          spacing_tensor(f_sp, dev), spacing_tensor(m_sp, dev),
-                          acfg, scfg, self.deformable)
-        return _to_host(outs)
+        return _run_block(fixed16, moving16, spacing_tensor(f_sp, dev),
+                          spacing_tensor(m_sp, dev), acfg, scfg, self.deformable, dev)
 
     def register_pair(self, s_case, s_path, t_case, t_path, verbose=True):
         paths = self._pair_paths(s_case, t_case)
@@ -276,78 +273,32 @@ class GroupRegistration:
         m_sp = nifti.get_nifti_pixdim(s_path)
         acfg, scfg = self._pair_cfgs(fixed.shape)
         # f16 upload: FLAIR intensities carry <= 12 significant bits
-        out = self._run_pair(fixed.astype(np.float16), moving.astype(np.float16),
-                             f_sp, m_sp, acfg, scfg)
-        self._write_pair(paths, f_hdr, f_sp, m_sp, fixed.shape, *out)
+        out = self._run_chunk(fixed.astype(np.float16)[None], moving.astype(np.float16)[None],
+                              f_sp, m_sp, acfg, scfg)
+        self._write_pair(paths, f_hdr, f_sp, m_sp, fixed.shape,
+                         *(None if o is None else o[0] for o in out))
         return paths
 
     def launch(self, verbose: bool = True, batch_pairs: int = 1, mesh=None):
         """Register every remaining pair as a three-stage pipeline: threaded
-        NIfTI prefetch -> the pair on the device -> threaded artifact
-        writes. Without ``mesh`` pairs run one by one (``batch_pairs`` is
-        accepted); with it each chunk of ``batch_pairs`` same-geometry
-        pairs goes through ``register_pairs_mesh`` (``batch_pairs`` should
-        be at least the mesh size to keep every shard busy)."""
-        if self.warm_start and mesh is not None:
-            raise ValueError("warm_start is a single-chip serial schedule (anchor row -> warm "
-                             "rows); drop --svf-warm-start to batch/shard pairs")
-        if mesh is not None:
-            return self._launch_mesh(max(1, batch_pairs), mesh, verbose=verbose)
-        if self.warm_start:
-            if batch_pairs > 1:
-                raise ValueError("warm_start is a serial schedule (anchor row -> warm "
-                                 "rows); drop --svf-warm-start to batch pairs")
-            return self._launch_warm(verbose=verbose)
-        return self._launch_pairs(verbose=verbose)
-
-    def _launch_pairs(self, verbose: bool = True):
-        todo, n_skip = [], 0
-        for s, t in self.tasks:
-            paths = self._pair_paths(s[0], t[0])
-            if self._pair_done(paths):
-                n_skip += 1
-                continue
-            f_hdr = nifti.get_nifti_header(t[1])
-            m_hdr = nifti.get_nifti_header(s[1])
-            # the spacings the JAX launcher groups pairs by, and writes:
-            # abs() of the header zooms rounded to 4 decimals
-            f_sp = tuple(round(abs(z), 4) for z in f_hdr.zooms[:3])
-            m_sp = tuple(round(abs(z), 4) for z in m_hdr.zooms[:3])
-            todo.append((s, t, paths, f_hdr, f_sp, m_sp))
-        if verbose and n_skip:
-            print("%d pair(s) already done, skipped" % n_skip, flush=True)
-
-        def load(item):
-            s, t = item[0], item[1]
-            # gzip decompression releases the GIL; f16 for the upload
-            return (nifti.load_nifti_simple(t[1]).astype(np.float16),
-                    nifti.load_nifti_simple(s[1]).astype(np.float16))
-
-        writes = []
-        with ThreadPoolExecutor(max_workers=8) as pool:
-            pending = pool.submit(load, todo[0]) if todo else None
-            for i, (s, t, paths, f_hdr, f_sp, m_sp) in enumerate(todo):
-                fixed, moving = pending.result()
-                if i + 1 < len(todo):
-                    pending = pool.submit(load, todo[i + 1])
-                if verbose:
-                    print("[%d/%d] registering %s" % (i + 1, len(todo), pair_name(s[0], t[0])),
-                          flush=True)
-                acfg, scfg = self._pair_cfgs(fixed.shape)
-                outs = self._run_pair(fixed, moving, f_sp, m_sp, acfg, scfg)
-                writes.append(pool.submit(self._write_pair, paths, f_hdr, f_sp, m_sp,
-                                          fixed.shape, *outs))
-                writes = _reap(writes)
-            # launch() returns only when every artifact is written
-            for f in writes:
-                f.result()
-
-    def _launch_mesh(self, batch_pairs: int, mesh, verbose: bool = True):
-        """Same-geometry chunks of ``batch_pairs`` through
-        ``register_pairs_mesh``, with the one-by-one launch's prefetch,
-        threaded writes and artifacts. Across processes every process
+        NIfTI prefetch -> the chunk on the device -> threaded artifact
+        writes. The remaining pairs are bucketed by geometry (shapes and
+        spacings) and cut into chunks of ``batch_pairs``: without ``mesh`` a
+        chunk of one runs through ``_pair_core`` and a longer one as one
+        ``_pair_core_batch``; with ``mesh`` every chunk goes through
+        ``register_pairs_mesh`` (``batch_pairs`` should be at least the mesh
+        size to keep every shard busy). Across processes every process
         writes only its own shards' pairs, then waits for the others."""
-        barrier(mesh)  # every process sees the same pairs to do
+        if self.warm_start:
+            if mesh is not None or batch_pairs > 1:
+                raise ValueError("warm_start is a single-chip serial schedule (anchor row -> warm "
+                                 "rows); drop --svf-warm-start to batch/shard pairs")
+            return self._launch_warm(verbose=verbose)
+        return self._launch_batched(max(1, int(batch_pairs)), mesh, verbose=verbose)
+
+    def _launch_batched(self, batch_pairs: int, mesh, verbose: bool = True):
+        if mesh is not None:
+            barrier(mesh)  # every process sees the same pairs to do
         buckets, n_skip = {}, 0
         for s, t in self.tasks:
             if self._pair_done(self._pair_paths(s[0], t[0])):
@@ -355,6 +306,8 @@ class GroupRegistration:
                 continue
             f_hdr = nifti.get_nifti_header(t[1])
             m_hdr = nifti.get_nifti_header(s[1])
+            # the spacings the JAX launcher groups pairs by, and writes:
+            # abs() of the header zooms rounded to 4 decimals
             key = (tuple(f_hdr.shape[:3]), tuple(m_hdr.shape[:3]),
                    tuple(round(abs(z), 4) for z in f_hdr.zooms[:3]),
                    tuple(round(abs(z), 4) for z in m_hdr.zooms[:3]))
@@ -366,6 +319,7 @@ class GroupRegistration:
                   for i in range(0, len(pairs), batch_pairs)]
 
         def load(chunk):
+            # gzip decompression releases the GIL; f16 for the upload
             return (np.stack([nifti.load_nifti_simple(t[1]) for _, t in chunk]).astype(np.float16),
                     np.stack([nifti.load_nifti_simple(s[1]) for s, _ in chunk]).astype(np.float16))
 
@@ -378,23 +332,30 @@ class GroupRegistration:
                     pending = pool.submit(load, chunks[ci + 1][0])
                 done += len(chunk)
                 if verbose:
+                    names = [pair_name(s[0], t[0]) for s, t in chunk]
                     print("[%d/%d] registering %s"
-                          % (done, total, [pair_name(s[0], t[0]) for s, t in chunk]), flush=True)
+                          % (done, total, names[0] if len(names) == 1 else names), flush=True)
                 acfg, scfg = self._pair_cfgs(f_shape)
-                outs = register_pairs_mesh(fixed, moving, f_sp, m_sp, mesh, affine_cfg=acfg,
-                                           svf_cfg=scfg, deformable=self.deformable)
-                rows = -(-len(chunk) // mesh.size)
+                if mesh is None:
+                    outs, rows, mine = self._run_chunk(fixed, moving, f_sp, m_sp, acfg, scfg), \
+                        len(chunk), (0,)
+                else:
+                    outs = register_pairs_mesh(fixed, moving, f_sp, m_sp, mesh, affine_cfg=acfg,
+                                               svf_cfg=scfg, deformable=self.deformable)
+                    rows, mine = -(-len(chunk) // mesh.size), mesh.local_shards
                 for j, (s, t) in enumerate(chunk):
-                    if j // rows not in mesh.local_shards:
+                    if j // rows not in mine:
                         continue  # another process's pair
                     outs_j = tuple(None if o is None else o[j] for o in outs)
                     writes.append(pool.submit(self._write_pair, self._pair_paths(s[0], t[0]),
                                               nifti.get_nifti_header(t[1]), f_sp, m_sp,
                                               f_shape, *outs_j))
                 writes = _reap(writes)
+            # launch() returns only when every artifact is written
             for f in writes:
                 f.result()
-        barrier(mesh)
+        if mesh is not None:
+            barrier(mesh)
 
     def _launch_warm(self, verbose: bool = True):
         """The anchor source's row and the source -> anchor auxiliary pairs

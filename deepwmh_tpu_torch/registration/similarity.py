@@ -25,6 +25,11 @@ and the fields' squared-difference regulariser.
 - The quantiles of ``winsorize_rescale`` are ``jnp.quantile``'s linear
   interpolation between two order statistics taken with ``kthvalue``
   (``torch.quantile`` refuses inputs above 2^24 elements).
+- Every function also takes a batch of pairs on a leading axis (volumes
+  [B,D,H,W], fields [B,C,D,H,W]; ``batch=True`` where the input may have
+  any shape) and reduces pair by pair: each pair's quantiles, histogram
+  normaliser and means are its own, and a size read for a rule is one
+  pair's.
 """
 
 from __future__ import annotations
@@ -47,22 +52,27 @@ def _order_stat_weights(n: int, q: float):
     return min(lo, n - 1), min(hi, n - 1), float(w_lo), float(w_hi)
 
 
-def quantile(x, q: float) -> torch.Tensor:
-    """The q quantile of all of ``x`` with linear interpolation (0-dim f32)."""
-    flat = x.reshape(-1).float()
-    lo, hi, w_lo, w_hi = _order_stat_weights(flat.numel(), q)
-    v_lo = torch.kthvalue(flat, lo + 1).values
-    v_hi = v_lo if hi == lo else torch.kthvalue(flat, hi + 1).values
+def quantile(x, q: float, batch: bool = False) -> torch.Tensor:
+    """The q quantile of all of ``x`` with linear interpolation (0-dim f32);
+    with ``batch``, of each x[b] ([B] f32)."""
+    flat = x.reshape(x.shape[:1] + (-1,) if batch else (-1,)).float()
+    lo, hi, w_lo, w_hi = _order_stat_weights(flat.shape[-1], q)
+    v_lo = torch.kthvalue(flat, lo + 1, dim=-1).values
+    v_hi = v_lo if hi == lo else torch.kthvalue(flat, hi + 1, dim=-1).values
     return v_lo * w_lo + v_hi * w_hi
 
 
 def winsorize_rescale(x, lo_q=0.005, hi_q=0.995) -> torch.Tensor:
     """Clip to the [0.5%, 99.5%] intensity quantiles and rescale to [0,1]
-    (the reference's --winsorize-image-intensities [0.005,0.995])."""
+    (the reference's --winsorize-image-intensities [0.005,0.995]); a batch
+    [B,D,H,W] pair by pair."""
     x = x.float()
-    lo = quantile(x, lo_q)
-    hi = quantile(x, hi_q)
+    batch = x.dim() == 4
+    lo = quantile(x, lo_q, batch)
+    hi = quantile(x, hi_q, batch)
     hi = torch.where(hi > lo, hi, lo + 1.0)
+    if batch:
+        lo, hi = lo.view(-1, 1, 1, 1), hi.view(-1, 1, 1, 1)
     return torch.clamp((x - lo) / (hi - lo), 0.0, 1.0)
 
 
@@ -78,30 +88,33 @@ def _abs(x) -> torch.Tensor:
     return torch.where(x >= 0, x, -x)
 
 
-def soft_joint_histogram(a, b, nbins: int = 32, mask=None) -> torch.Tensor:
+def soft_joint_histogram(a, b, nbins: int = 32, mask=None, batch: bool = False) -> torch.Tensor:
     """Normalised differentiable joint histogram p_ab [nbins, nbins] of two
-    [0,1] volumes (module docstring)."""
-    a = a.reshape(-1)
-    b = b.reshape(-1)
+    [0,1] volumes (module docstring); with ``batch``, [B, nbins, nbins]
+    from one batched product, each pair normalised by its own sum."""
+    lead = tuple(a.shape[:1]) if batch else ()
+    a = a.reshape(lead + (-1,))
+    b = b.reshape(lead + (-1,))
     pa = _clip01(a) * (nbins - 1)
     pb = _clip01(b) * (nbins - 1)
     bins = torch.arange(nbins, dtype=torch.float32, device=a.device)
     zero = a.new_zeros(())
-    wa = torch.maximum(zero, 1.0 - _abs(pa[None, :] - bins[:, None]))
-    wb = torch.maximum(zero, 1.0 - _abs(pb[None, :] - bins[:, None]))
+    wa = torch.maximum(zero, 1.0 - _abs(pa[..., None, :] - bins[:, None]))
+    wb = torch.maximum(zero, 1.0 - _abs(pb[..., None, :] - bins[:, None]))
     if mask is not None:
-        wb = wb * mask.reshape(-1).float()[None, :]
-    hist = wa @ wb.T
-    return hist / torch.clamp(hist.sum(), min=1e-8)
+        wb = wb * mask.reshape(lead + (-1,)).float()[..., None, :]
+    hist = wa @ wb.transpose(-1, -2)
+    return hist / torch.clamp(hist.sum((-2, -1), keepdim=True), min=1e-8)
 
 
-def mutual_information(a, b, nbins: int = 32, mask=None) -> torch.Tensor:
-    """MI(a, b) >= 0, higher = better aligned."""
-    p_ab = soft_joint_histogram(a, b, nbins, mask)
-    p_a = p_ab.sum(1, keepdim=True)
-    p_b = p_ab.sum(0, keepdim=True)
+def mutual_information(a, b, nbins: int = 32, mask=None, batch: bool = False) -> torch.Tensor:
+    """MI(a, b) >= 0, higher = better aligned; with ``batch``, [B]."""
+    p_ab = soft_joint_histogram(a, b, nbins, mask, batch)
+    p_a = p_ab.sum(-1, keepdim=True)
+    p_b = p_ab.sum(-2, keepdim=True)
     eps = 1e-10
-    return (p_ab * (torch.log(p_ab + eps) - torch.log(p_a + eps) - torch.log(p_b + eps))).sum()
+    return (p_ab * (torch.log(p_ab + eps) - torch.log(p_a + eps) - torch.log(p_b + eps))).sum(
+        (-2, -1))
 
 
 def _box_axis(x, radius: int, dim: int) -> torch.Tensor:
@@ -141,7 +154,8 @@ def box_sums(x, radius: int) -> torch.Tensor:
 
 def lncc(a, b, radius: int = 4, eps: float = 1e-5) -> torch.Tensor:
     """Local normalised cross-correlation (ANTs CC metric): the mean of the
-    squared local correlation, in [0, 1]; higher = better aligned."""
+    squared local correlation, in [0, 1]; higher = better aligned. A batch
+    [B,D,H,W] gives [B]."""
     n, sa, sb, saa, sbb, sab = box_sums(
         torch.stack([torch.ones_like(a), a, b, a * a, b * b, a * b]), radius)
     ma = sa / n
@@ -150,26 +164,26 @@ def lncc(a, b, radius: int = 4, eps: float = 1e-5) -> torch.Tensor:
     var_a = saa - 2 * ma * sa + ma * ma * n
     var_b = sbb - 2 * mb * sb + mb * mb * n
     cc = (cross * cross) / (var_a * var_b + eps)
-    return cc.mean()
+    return cc.mean((-3, -2, -1))
 
 
 def downsample_mean(x, factor: int) -> torch.Tensor:
-    """Mean-pool a [D,H,W] volume by an integer factor (zero-padding the
-    remainder): the pyramid shrink of the affine and SVF stages."""
+    """Mean-pool a [..., D,H,W] volume by an integer factor (zero-padding
+    the remainder): the pyramid shrink of the affine and SVF stages."""
     if factor <= 1:
         return x
     s = factor
-    d, h, w = (int(v) for v in x.shape)
+    d, h, w = (int(v) for v in x.shape[-3:])
     xp = F.pad(x, (0, (-w) % s, 0, (-h) % s, 0, (-d) % s))
-    D, H, W = (int(v) // s for v in xp.shape)
-    return xp.reshape(D, s, H, s, W, s).mean((1, 3, 5))
+    D, H, W = (int(v) // s for v in xp.shape[-3:])
+    return xp.reshape(tuple(xp.shape[:-3]) + (D, s, H, s, W, s)).mean((-5, -3, -1))
 
 
 def grad_sq(v) -> torch.Tensor:
     """Mean squared forward differences over the spatial axes of a
     [C,D,H,W] field, summed over the axes (the SVF stage's and the learned
-    loss' regulariser)."""
+    loss' regulariser); a batch [B,C,D,H,W] gives [B]."""
     total = 0.0
-    for ax in range(1, 4):
-        total = total + torch.diff(v, dim=ax).square().mean()
+    for ax in (-3, -2, -1):
+        total = total + torch.diff(v, dim=ax).square().mean((-4, -3, -2, -1))
     return total

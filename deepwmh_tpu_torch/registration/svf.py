@@ -18,6 +18,10 @@ the result is a dense displacement field in voxels on the fixed grid.
   banded matmul per axis, the edge padding folded into the band's end rows:
   plain f32 (torch does not run f32 matmuls in TF32 by default, where a
   cuDNN depthwise convolution would), and one launch per axis.
+- Every step also takes a batch of same-grid pairs on a leading axis
+  (volumes [B,D,H,W], fields [B,3,D,H,W]), as the affine core does: one
+  Adam loop a level, the sum of the per-pair losses differentiated, the
+  last loss of each pair returned.
 """
 
 from __future__ import annotations
@@ -63,10 +67,11 @@ class SVFConfig:
 
 
 def scaling_and_squaring(v, n: int = 6) -> torch.Tensor:
-    """Integrate a stationary velocity field [3,D,H,W]: exp(v) by n
-    squarings, each one 3-channel resample of the field by itself."""
+    """Integrate a stationary velocity field [3,D,H,W] (or a batch
+    [B,3,D,H,W]): exp(v) by n squarings, each one 3-channel resample of the
+    field by itself."""
     d = v / (2.0 ** n)
-    grid = identity_grid(v.shape[1:], v.device)
+    grid = identity_grid(v.shape[-3:], v.device)
     for _ in range(n):
         d = d + sample_channels(d, grid + d)
     return d
@@ -120,9 +125,10 @@ def smooth_matrices(shape, sigma: float, device):
 def _along_axis(x, mat, axis: int) -> torch.Tensor:
     """Apply the [n, n] matrix ``mat`` along spatial ``axis`` (0, 1, 2) of
     x [..., D, H, W]: out[.., i, ..] = sum_j mat[i, j] x[.., j, ..]. The
-    axis is moved last and made contiguous, then one plain 2-D product (a
-    batched product over a transposed view takes a path on the CPU that is
-    hundreds of times slower)."""
+    axis is moved last and made contiguous, then one plain 2-D product with
+    every leading axis (a batch's too) folded into its rows (a batched
+    product over a transposed view takes a path on the CPU that is hundreds
+    of times slower)."""
     dim = x.dim() - 3 + axis
     moved = x.movedim(dim, -1).contiguous()
     out = moved.reshape(-1, moved.shape[-1]) @ mat.T
@@ -130,36 +136,37 @@ def _along_axis(x, mat, axis: int) -> torch.Tensor:
 
 
 def _smooth3(v, sigma, mats=None) -> torch.Tensor:
-    """Separable Gaussian smoothing of a [3,D,H,W] field (replicate
+    """Separable Gaussian smoothing of a [..., 3,D,H,W] field (replicate
     boundary); ``mats`` from ``smooth_matrices``, built here if absent."""
     if sigma <= 0:
         return v
     if mats is None:
-        mats = smooth_matrices(v.shape[1:], sigma, v.device)
+        mats = smooth_matrices(v.shape[-3:], sigma, v.device)
     for ax in range(3):
         v = _along_axis(v, mats[ax], ax)
     return v
 
 
 def _resize_field(v, new_shape) -> torch.Tensor:
-    """Linear-resize a [3,...] voxel-unit field to a new grid, scaling the
-    vectors by the grid ratio."""
+    """Linear-resize a [..., 3,D,H,W] voxel-unit field to a new grid
+    ``new_shape`` (3 ints), scaling the vectors by the grid ratio."""
     out = []
     for i in range(3):
-        c = v[i]
+        c = v.select(-4, i)
         for ax in range(3):
-            c = linear_resize_axis(c, ax, int(new_shape[ax]))
-        out.append(c * (new_shape[i] / v.shape[1 + i]))
-    return torch.stack(out)
+            c = linear_resize_axis(c, c.dim() - 3 + ax, int(new_shape[ax]))
+        out.append(c * (new_shape[i] / v.shape[-3 + i]))
+    return torch.stack(out, -4)
 
 
 def _optimize_svf_level(fixed, moving, v0, iters: int, lr: float, n_squaring: int,
                         lncc_radius: int, bending: float, sigma: float,
                         exact_exp_grad: bool = True):
     """``iters`` Adam steps of one level; returns (v, last loss) on the
-    device, having waited for neither."""
+    device, having waited for neither. A batch steps every pair on the sum
+    of its losses and returns the last loss of each, [B]."""
     exp_fn = scaling_and_squaring if exact_exp_grad else scaling_and_squaring_approx_grad
-    mats = smooth_matrices(v0.shape[1:], sigma, v0.device) if sigma > 0 else None
+    mats = smooth_matrices(v0.shape[-3:], sigma, v0.device) if sigma > 0 else None
 
     def loss_fn(v):
         vs = _smooth3(v, sigma, mats)
@@ -168,12 +175,12 @@ def _optimize_svf_level(fixed, moving, v0, iters: int, lr: float, n_squaring: in
 
     v = v0.detach().clone()
     opt = Adam([v], lr)
-    loss = torch.zeros((), device=v.device)
+    loss = torch.zeros(tuple(fixed.shape[:-3]), device=v.device)
     for _ in range(iters):
         with torch.enable_grad():
             p = v.detach().requires_grad_(True)
             loss = loss_fn(p)
-            (g,) = torch.autograd.grad(loss, p)
+            (g,) = torch.autograd.grad(loss, p, torch.ones_like(loss))
         opt.step([g])
     return v, loss.detach()
 
@@ -181,7 +188,7 @@ def _optimize_svf_level(fixed, moving, v0, iters: int, lr: float, n_squaring: in
 def _svf_core(fixed, moving, cfg: SVFConfig, v0=None):
     """The full deformable pyramid of one pair (winsorize, every level's
     Adam loop, final integration and upsampling) -> (disp [3,D,H,W], last
-    loss) on the device.
+    loss) on the device; a batch [B,D,H,W] -> ([B,3,D,H,W], [B]).
 
     v0: optional [3, D', H', W'] initial velocity (voxel units, any grid,
     resized to the coarsest level): the warm start's first-order seed,
@@ -190,15 +197,17 @@ def _svf_core(fixed, moving, cfg: SVFConfig, v0=None):
     moving = winsorize_rescale(moving)
 
     v = None
-    loss = torch.zeros((), device=fixed.device)
+    lead = tuple(fixed.shape[:-3])
+    loss = torch.zeros(lead, device=fixed.device)
     for shrink, iters in zip(cfg.shrinks, cfg.iters):
         f = downsample_mean(fixed, shrink)
         m = downsample_mean(moving, shrink)
+        grid = tuple(f.shape[-3:])
         if v is None:
-            v = (torch.zeros((3,) + tuple(f.shape), device=f.device) if v0 is None
-                 else _resize_field(v0.float(), f.shape))
+            v = (torch.zeros(lead + (3,) + grid, device=f.device) if v0 is None
+                 else _resize_field(v0.float(), grid))
         else:
-            v = _resize_field(v, f.shape)
+            v = _resize_field(v, grid)
         polish = 0 if cfg.exact_exp_grad else min(int(cfg.exact_polish_iters), int(iters))
         schedule = [(int(iters) - polish, bool(cfg.exact_exp_grad))]
         if polish:
@@ -214,7 +223,7 @@ def _svf_core(fixed, moving, cfg: SVFConfig, v0=None):
 
     v = _smooth3(v, cfg.smooth_sigma_vox)
     disp_small = scaling_and_squaring(v, cfg.n_squaring)
-    return _resize_field(disp_small, fixed.shape), loss
+    return _resize_field(disp_small, fixed.shape[-3:]), loss
 
 
 def _feasible_cfg(cfg: SVFConfig, shape) -> SVFConfig:
@@ -234,10 +243,13 @@ def register_svf(fixed, moving, cfg: SVFConfig = None, device=None):
 
 
 def register_svf_batch(fixed_stack, moving_stack, cfg: SVFConfig = None, device=None):
-    """B same-grid pairs one after another. Returns (disp [B,3,D,H,W],
-    losses [B]) as numpy."""
-    out = [register_svf(f, m, cfg, device) for f, m in zip(fixed_stack, moving_stack)]
-    return np.stack([d for d, _ in out]), np.asarray([l for _, l in out], np.float32)
+    """B same-grid pairs as one batch through the core (one Adam loop a
+    level for all B). Returns (disp [B,3,D,H,W], losses [B]) as numpy."""
+    dev = resolve_device(device)
+    cfg = _feasible_cfg(cfg or SVFConfig(), np.shape(fixed_stack)[1:])
+    disp, losses = _svf_core(torch.as_tensor(np.asarray(fixed_stack, np.float32)).to(dev),
+                             torch.as_tensor(np.asarray(moving_stack, np.float32)).to(dev), cfg)
+    return disp.cpu().numpy(), losses.cpu().numpy()
 
 
 def apply_affine_svf(moving, matrix, disp, fixed_shape, fixed_spacing, moving_spacing,
@@ -246,16 +258,18 @@ def apply_affine_svf(moving, matrix, disp, fixed_shape, fixed_spacing, moving_sp
     antsApplyTransforms -t affine -t warp: the output voxel is displaced by
     the warp on the fixed grid, then mapped through the physical affine into
     the moving volume. Tensors on one device; spacings as numbers or f32
-    [3] tensors."""
+    [3] tensors. A batch: ``moving`` [B, ...], ``matrix`` [B,3,4], ``disp``
+    [B,3, ...]."""
     dev = disp.device
     fixed_shape = tuple(int(s) for s in fixed_shape)
     fsp = _as_spacing(fixed_spacing, dev).reshape(3, 1)
     msp = _as_spacing(moving_spacing, dev).reshape(3, 1)
     matrix = torch.as_tensor(matrix, dtype=torch.float32).to(dev)
-    A, t = matrix[:, :3], matrix[:, 3]
+    A, t = matrix[..., :3], matrix[..., 3]
     warped_vox = identity_grid(fixed_shape, dev) + disp.float()
-    mov_phys = A @ (warped_vox.reshape(3, -1) * fsp) + t[:, None]
-    mov_vox = (mov_phys / msp).reshape((3,) + fixed_shape)
+    lead = tuple(warped_vox.shape[:-4])
+    mov_phys = A @ (warped_vox.reshape(lead + (3, -1)) * fsp) + t[..., None]
+    mov_vox = (mov_phys / msp).reshape(lead + (3,) + fixed_shape)
     return sample_volume(moving, mov_vox, order=order)
 
 

@@ -10,8 +10,9 @@ import's native host library built on the card's machine and equal to its
 Python versions, an 8-shard mesh on one card (the halo-sharded median
 and the flip-sharded sweep bit for bit against the unsharded ones) and a
 2-shard one (a data-parallel step leaving both replicas the same bits,
-``register_pairs_mesh`` bit for bit against one by one). Every
-test here needs a card and skips without one; this
+``register_pairs_mesh``'s blocks bit for bit against one batch each), K2
+over a batch of volumes in one launch, and a batch of pairs against one
+pair at a time. Every test here needs a card and skips without one; this
 file imports no JAX, so that it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
@@ -265,6 +266,24 @@ def test_median3_refuses_what_it_cannot_read(cuda):
         kernels.median3(vol[0])
 
 
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_median3_batch_is_one_launch_bit_equal(cuda, B):
+    """K2 over [B, D, H, W] (D = 37, not a multiple of the 16-plane depth
+    chunk; H, W odd): one launch, each volume equal to its own call and to
+    the plain version. The volumes differ by large constants, so a chunk
+    reading the next volume's first plane as plane D would show."""
+    shape = (B, 37, 21, 45)
+    vols = _signed_volume(shape, B, cuda) + 1000.0 * torch.arange(B, device=cuda).view(B, 1, 1, 1)
+    before = kernels.median3.launches
+    got = kernels.median3(vols)
+    torch.cuda.synchronize()
+    assert kernels.median3.launches == before + 1
+    assert got.shape == vols.shape
+    for b in range(B):
+        assert torch.equal(got[b], kernels.median3(vols[b].contiguous()))
+    assert torch.equal(got, kernels.median3_reference(vols))
+
+
 @pytest.mark.parametrize("voxel_size", [(2.0, 2.0, 2.0), (1.0, 1.0, 5.0)])
 def test_median_3mm_on_card_equals_cpu(cuda, voxel_size):
     vol = _signed_volume((24, 30, 22), 7, "cpu")
@@ -407,7 +426,8 @@ def test_mesh_on_one_card_dp_step_keeps_replicas_equal(cuda, tmp_path):
 
 def test_mesh_on_one_card_register_pairs_is_one_by_one(cuda):
     """register_pairs_mesh over Mesh([cuda] * 2), three pairs (the padding
-    path): every output bit-equal to _pair_core one by one on the card."""
+    path): each shard's block of two (the last pair repeated) bit-equal to
+    one _pair_core_batch of that block on the card."""
     import numpy as np
 
     from deepwmh_tpu_torch.parallel.mesh import Mesh
@@ -416,7 +436,7 @@ def test_mesh_on_one_card_register_pairs_is_one_by_one(cuda):
         feasible_affine_cfg,
         spacing_tensor,
     )
-    from deepwmh_tpu_torch.registration.group import _pair_core, _to_host, register_pairs_mesh
+    from deepwmh_tpu_torch.registration.group import _pair_core_batch, _to_host, register_pairs_mesh
     from deepwmh_tpu_torch.registration.svf import SVFConfig, _feasible_cfg
 
     shape = (32, 36, 28)
@@ -427,13 +447,49 @@ def test_mesh_on_one_card_register_pairs_is_one_by_one(cuda):
     sp = spacing_tensor((1.0, 1.0, 1.0), cuda)
     got = register_pairs_mesh(fixed, moving, (1.0,) * 3, (1.0,) * 3, Mesh([cuda] * 2),
                               affine_cfg=acfg, svf_cfg=scfg)
-    for i in range(3):
-        want = _to_host(_pair_core(torch.from_numpy(fixed[i]).to(cuda),
-                                   torch.from_numpy(moving[i]).to(cuda), sp, sp,
-                                   feasible_affine_cfg(acfg, shape), _feasible_cfg(scfg, shape),
-                                   True))
+    for block in ([0, 1], [2, 2]):
+        want = _to_host(_pair_core_batch(torch.from_numpy(fixed[block]).to(cuda),
+                                         torch.from_numpy(moving[block]).to(cuda), sp, sp,
+                                         feasible_affine_cfg(acfg, shape),
+                                         _feasible_cfg(scfg, shape), True))
+        rows = sorted(set(block))
         for k in range(5):
-            assert np.array_equal(got[k][i], np.asarray(want[k], dtype=got[k].dtype)), (i, k)
+            assert np.array_equal(got[k][rows], want[k][:len(rows)]), (block, k)
+
+
+def test_pair_core_batch_on_card_within_one_pair_bars(cuda):
+    """Two pairs as one batch on the card against each pair alone, on a
+    short schedule (the one-pair bars of tests/test_torch_port_group.py:
+    matrix 2e-3, field 0.05 voxel, image 1% of the range)."""
+    import numpy as np
+
+    from deepwmh_tpu_torch.registration.affine import AffineConfig, spacing_tensor
+    from deepwmh_tpu_torch.registration.group import _pair_core, _pair_core_batch, _to_host
+    from deepwmh_tpu_torch.registration.svf import SVFConfig
+
+    shape = (32, 32, 32)
+    g = np.meshgrid(*[np.linspace(-1, 1, n) for n in shape], indexing="ij")
+    rs = np.random.RandomState(2)
+
+    def blob(stretch, shift):
+        r = np.sqrt((g[0] * stretch + shift) ** 2 + g[1] ** 2 + (g[2] / stretch) ** 2)
+        return ((r < 0.7) * (100 + 20 * rs.rand(*shape))).astype(np.float16)
+
+    fixed = np.stack([blob(1.0, 0.0), blob(1.05, 0.02)])
+    moving = np.stack([blob(1.1, 0.06), blob(0.95, -0.05)])
+    acfg = AffineConfig(shrinks=(4,), iters=(1,))
+    scfg = SVFConfig(shrinks=(4,), iters=(2,), n_squaring=4, exact_polish_iters=1)
+    sp = spacing_tensor((1.0, 1.0, 1.0), cuda)
+    got = _to_host(_pair_core_batch(torch.from_numpy(fixed).to(cuda),
+                                    torch.from_numpy(moving).to(cuda), sp, sp, acfg, scfg, True))
+    for i in range(2):
+        one = _to_host(_pair_core(torch.from_numpy(fixed[i]).to(cuda),
+                                  torch.from_numpy(moving[i]).to(cuda), sp, sp, acfg, scfg, True))
+        assert np.abs(got[0][i] - one[0]).max() <= 2e-3
+        assert np.abs(got[2][i].astype(np.float32) - one[2].astype(np.float32)).max() <= 0.05
+        span = float(fixed[i].max()) - float(fixed[i].min())
+        assert (np.abs(got[4][i].astype(np.float32) - one[4].astype(np.float32)).max()
+                <= 1e-2 * span)
 
 
 def _learned_stats_shapes():

@@ -15,8 +15,10 @@ the 8 virtual devices of tests/conftest.py. Tolerances:
   parameters and batch: JAX's own bars (tests/test_learned_reg.py), loss
   rtol 1e-4, gradient cosine > 0.99, norm ratio 0.95-1.05; against the port
   unsharded in f32: loss rtol 1e-6, gradients within 1e-5 of their scale;
-- ``register_pairs_mesh`` bit-equal to ``_pair_core`` one by one, and
-  ``launch(mesh=)``'s artifacts byte-equal to ``launch()``'s.
+- ``register_pairs_mesh``: each shard's block bit-equal to
+  ``_pair_core_batch`` on that block (a block of one: ``_pair_core``), every
+  row within the one-pair bars of ``_pair_core``; ``launch(mesh=)`` over
+  blocks of one byte-equal to ``launch()`` one by one.
 """
 
 import os
@@ -49,6 +51,7 @@ from deepwmh_tpu_torch.unet.plan import Plan
 from deepwmh_tpu_torch.unet.train import TrainConfig, Trainer
 
 import chip_smoke
+from test_torch_port_group import _one_pair_bars
 
 CPU = torch.device("cpu")
 PATCH = (16, 16, 16)
@@ -357,16 +360,22 @@ def test_learned_batch_pairs_rules_and_host_route(monkeypatch, capsys):
 PAIR_SHAPE = (24, 26, 22)
 ACFG = AffineConfig(shrinks=(2,), iters=(3,))
 SCFG = SVFConfig(shrinks=(2,), iters=(3,))
+# a short affine schedule for the one-pair bars: at ACFG's 3 iterations these
+# random-noise pairs are chaotic (a one-ulp input change moves either
+# package's matrix by 0.77-2.32), so a batch row parts from its pair alone
+# as a last-bit change does (test_batch_rows_within_the_one_ulp_spread)
+SHORT_ACFG = AffineConfig(shrinks=(2,), iters=(1,))
 
 
 @pytest.fixture(scope="module")
 def pairs():
-    """Five random pairs and their one-by-one _pair_core outputs."""
+    """Five random pairs and their one-by-one _pair_core outputs on the
+    short schedule."""
     rng = np.random.RandomState(0)
     fx = (rng.rand(5, *PAIR_SHAPE) * 100).astype(np.float32)
     mv = (rng.rand(5, *PAIR_SHAPE) * 100).astype(np.float32)
     sp = spacing_tensor((1.0, 1.0, 1.0), CPU)
-    acfg, scfg = feasible_affine_cfg(ACFG, PAIR_SHAPE), _feasible_cfg(SCFG, PAIR_SHAPE)
+    acfg, scfg = feasible_affine_cfg(SHORT_ACFG, PAIR_SHAPE), _feasible_cfg(SCFG, PAIR_SHAPE)
     one = [group._to_host(group._pair_core(
         torch.from_numpy(fx[i].astype(np.float16)), torch.from_numpy(mv[i].astype(np.float16)),
         sp, sp, acfg, scfg, True)) for i in range(5)]
@@ -375,27 +384,80 @@ def pairs():
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_register_pairs_mesh_is_one_by_one(n, pairs):
-    """B = 5 over n shards (the padding path): JAX's tuple layout, every
-    row bit-equal to _pair_core one by one."""
+    """B = 5 over n shards (the padding path): JAX's tuple layout; each
+    shard's block of rows (the last pair repeated to fill it) bit-equal to
+    one ``_pair_core_batch`` of that block on one device; on the short
+    schedule every row within the one-pair bars of ``_pair_core`` one by
+    one (a batch sums its products in another order than one pair, so its
+    last bits differ)."""
     fx, mv, one = pairs
     got = group.register_pairs_mesh(fx, mv, (1.0, 1.0, 1.0), (1.0, 1.0, 1.0), cpu_mesh(n),
                                     affine_cfg=ACFG, svf_cfg=SCFG)
     assert [g.shape for g in got] == [(5, 3, 4), (5,), (5, 3) + PAIR_SHAPE, (5,),
                                       (5,) + PAIR_SHAPE]
-    for i in range(5):
+    rows = -(-5 // n)
+    padded = [np.concatenate([a, np.repeat(a[-1:], rows * n - 5, axis=0)]).astype(np.float16)
+              for a in (fx, mv)]
+    sp = spacing_tensor((1.0, 1.0, 1.0), CPU)
+    acfg, scfg = feasible_affine_cfg(ACFG, PAIR_SHAPE), _feasible_cfg(SCFG, PAIR_SHAPE)
+    for d in range(-(-5 // rows)):  # the shards that hold a pair
+        lo, hi = d * rows, min((d + 1) * rows, 5)
+        block = group._to_host(group._pair_core_batch(
+            *(torch.from_numpy(a[d * rows:(d + 1) * rows]) for a in padded), sp, sp, acfg, scfg,
+            True))
         for k in range(5):
-            want = np.asarray(one[i][k], dtype=got[k].dtype)
-            np.testing.assert_array_equal(got[k][i], want)
+            np.testing.assert_array_equal(got[k][lo:hi], block[k][:hi - lo])
+    short = group.register_pairs_mesh(fx, mv, (1.0, 1.0, 1.0), (1.0, 1.0, 1.0), cpu_mesh(n),
+                                      affine_cfg=SHORT_ACFG, svf_cfg=SCFG)
+    for i in range(5):
+        _one_pair_bars(tuple(g[i] for g in short), one[i], fx[i])
     affine_only = group.register_pairs_mesh(fx[:2], mv[:2], (1.0,) * 3, (1.0,) * 3, cpu_mesh(n),
                                             affine_cfg=ACFG, svf_cfg=SCFG, deformable=False)
     assert affine_only[2] is None and affine_only[3] is None
-    np.testing.assert_array_equal(affine_only[0], got[0][:2])
+    # the matrices of the same blocks with the deformable stage
+    both = group.register_pairs_mesh(fx[:2], mv[:2], (1.0,) * 3, (1.0,) * 3, cpu_mesh(n),
+                                     affine_cfg=ACFG, svf_cfg=SCFG)
+    np.testing.assert_array_equal(affine_only[0], both[0])
+
+
+@pytest.mark.slow
+def test_batch_rows_within_the_one_ulp_spread(pairs):
+    """Why the one-pair bars run on SHORT_ACFG: at ACFG's 3 affine
+    iterations each batch row of the 2-shard mesh (blocks of 3) parts from
+    its pair alone by less in the matrix than a one-ulp change of the
+    moving volume moves JAX's own ``_pair_core_jit`` on that pair."""
+    from deepwmh_tpu.registration import affine as jaffine
+    from deepwmh_tpu.registration import group as jgroup
+    from deepwmh_tpu.registration import svf as jsvf
+
+    fx, mv, _ = pairs
+    got = group.register_pairs_mesh(fx, mv, (1.0, 1.0, 1.0), (1.0, 1.0, 1.0), cpu_mesh(2),
+                                    affine_cfg=ACFG, svf_cfg=SCFG)
+    sp = spacing_tensor((1.0, 1.0, 1.0), CPU)
+    acfg, scfg = feasible_affine_cfg(ACFG, PAIR_SHAPE), _feasible_cfg(SCFG, PAIR_SHAPE)
+    jacfg = jaffine.feasible_affine_cfg(jaffine.AffineConfig(shrinks=(2,), iters=(3,)), PAIR_SHAPE)
+    jscfg = jsvf._feasible_cfg(jsvf.SVFConfig(shrinks=(2,), iters=(3,)), PAIR_SHAPE)
+    jsp = jnp.ones(3, jnp.float32)
+    for i in range(5):
+        f16, m16 = fx[i].astype(np.float16), mv[i].astype(np.float16)
+        up = np.nextafter(m16, np.float16(np.inf))
+        port = [group._to_host(group._pair_core(torch.from_numpy(f16), torch.from_numpy(m),
+                                                sp, sp, acfg, scfg, True))[0] for m in (m16, up)]
+        ref = [np.asarray(jgroup._pair_core_jit(jnp.asarray(f16), jnp.asarray(m), jsp, jsp,
+                                                jacfg, jscfg, deformable=True)[0])
+               for m in (m16, up)]
+        batch_gap = np.abs(got[0][i] - port[0]).max()
+        ulp = {"port": np.abs(port[1] - port[0]).max(), "jax": np.abs(ref[1] - ref[0]).max()}
+        print("pair %d: batch row - pair alone %.4g; one ulp moves the port %.4g, JAX %.4g"
+              % (i, batch_gap, ulp["port"], ulp["jax"]))
+        assert batch_gap < ulp["jax"]
 
 
 def test_launch_over_a_mesh_writes_the_one_by_one_bytes(tmp_path, monkeypatch):
-    """launch(mesh=) on a 2 x 2 cohort (one chunk of 4 over 4 shards, cut
-    schedules): every artifact byte-equal to launch()'s; a re-run skips all
-    four; a warm start over a mesh raises JAX's ValueError."""
+    """launch(mesh=) on a 2 x 2 cohort (one chunk of 4 over 4 shards: a
+    block of one a shard, cut schedules): every artifact byte-equal to
+    launch(batch_pairs=1)'s, one by one; a re-run skips all four; a warm
+    start over a mesh raises JAX's ValueError."""
     src, tgt, cases = chip_smoke.registration_cohort(str(tmp_path / "cohort"), PAIR_SHAPE,
                                                      (1.0, 1.0, 1.0), n_targets=2, seed=0)
     sources = [(c, cases[c][0]) for c in ("src0", "src1")]
@@ -405,11 +467,11 @@ def test_launch_over_a_mesh_writes_the_one_by_one_bytes(tmp_path, monkeypatch):
     monkeypatch.setattr(group, "register_pairs_mesh",
                         lambda f, *a, **kw: chunks.append(f.shape[0]) or real(f, *a, **kw))
     outs = {}
-    for name, mesh in (("one", None), ("mesh", cpu_mesh(4))):
+    for name, mesh, batch_pairs in (("one", None, 1), ("mesh", cpu_mesh(4), 4)):
         reg = group.GroupRegistration(sources, targets, str(tmp_path / name), quick=True,
                                       device="cpu")
         reg.affine_cfg, reg.svf_cfg = ACFG, SCFG
-        reg.launch(verbose=False, batch_pairs=4, mesh=mesh)
+        reg.launch(verbose=False, batch_pairs=batch_pairs, mesh=mesh)
         outs[name] = reg
     assert chunks == [4]
     files = sorted(os.path.relpath(os.path.join(d, f), str(tmp_path / "one"))

@@ -436,7 +436,12 @@ def test_stage1_on_mesh_matches_one_by_one_and_jax(tmp_path):
                    - summaries["jax"]["autoseg_threshold"]) <= (xs[1] - xs[0]) * 1.0001
 
 
-def test_stage1_chunks_deal_cases_over_the_shards(tmp_path):
+def test_stage1_chunks_deal_cases_over_the_shards(tmp_path, monkeypatch):
+    """JAX's chunk sizing; ``map_blocks`` deals a padded batch over the
+    shards a block each, on the shard's device, gathered in shard order;
+    the analyzer sends a chunk's batch through ``nll_analysis_batch`` with
+    its mesh and a group of one through ``analyze_case``."""
+    from deepwmh_tpu_torch.pipeline import analysis
     from deepwmh_tpu_torch.pipeline.analysis import LesionAnalyzer
 
     from deepwmh_tpu.pipeline.analysis import LesionAnalyzer as JLesionAnalyzer
@@ -446,13 +451,24 @@ def test_stage1_chunks_deal_cases_over_the_shards(tmp_path):
     for shape, K, n in [((192, 224, 192), 10, 8), ((64, 80, 64), 10, 2),
                         ((192, 224, 192), 10, 1), ((400, 400, 400), 30, 4)]:
         assert an._auto_batch_cases(shape, K, n) == jan._auto_batch_cases(shape, K, n)
+    mesh = pmesh.Mesh([CPU, torch.device("cpu", 0)])
     seen = []
-    an.analyze_case = lambda case, device=None, **kw: seen.append((case, device)) or (
-        case, None, None)
-    out = an._analyze_chunk(["a", "b", "c"], [None] * 3, [CPU, torch.device("cpu", 0)] * 1,
-                            "+", False)
-    assert [r[0] for r in out] == ["a", "b", "c"]
-    assert sorted(seen) == [("a", CPU), ("b", torch.device("cpu", 0)), ("c", CPU)]
+    out = pmesh.map_blocks(mesh, [torch.arange(5.0)],
+                           lambda dev, b: seen.append((str(dev), b.tolist())) or (b * 2, None))
+    assert sorted(seen) == [("cpu", [0.0, 1.0, 2.0]), ("cpu:0", [3.0, 4.0, 4.0])]
+    assert out[0].tolist() == [0.0, 2.0, 4.0, 6.0, 8.0] and out[1] is None
+    calls, solo = [], []
+    monkeypatch.setattr(analysis, "nll_analysis_batch", lambda xs, *a, mesh=None, **kw: (
+        calls.append((xs.shape[0], mesh)) or [torch.ones(xs.shape)] * 8
+        + [torch.arange(float(xs.shape[0]))]))
+    an.analyze_case = lambda case, **kw: solo.append(case) or ("result " + case, "hdr", None)
+    vol = np.zeros((4, 4, 4), np.float32)
+    loaded = [(vol, "h%d" % i, (1.0, 1.0, 1.0), np.zeros((2, 4, 4, 4)), np.zeros((2, 4, 4, 4)),
+               np.full((2, 4, 4, 4), c, np.float32)) for i, c in enumerate((1, 1, 2))]
+    res = an._analyze_chunk_batched(["a", "b", "c"], loaded, "+", False, mesh)
+    assert calls == [(2, mesh)] and solo == ["c"]
+    assert [r[1] for r in res] == ["h0", "h1", "hdr"] and res[2][0] == "result c"
+    assert [r[0].threshold for r in res[:2]] == [0.0, 1.0]
     with pytest.raises(TypeError, match="Mesh"):
         an.analyze_and_do_segmentation(mesh=object())
 
