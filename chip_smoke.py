@@ -172,7 +172,14 @@ Phases, each printing JSON lines to stdout:
    ``_pair_core`` one by one. ``run_train`` over the mesh on a 2 x 2
    phantom cohort at 64x80x64 (quick registration, 1 / 1 epoch x 2 steps):
    K1's and K2's launches, the nine markers, the release installed; then a
-   resume through the train CLI with ``--mesh`` that trains nothing.
+   resume through the train CLI with ``--mesh`` that trains nothing;
+26. surface (run right after convert_evaluate): the last of the JAX
+   package's public surface. The main path's FLAIR saved in LPS and read
+   with ``load_nifti(force_RAS=True)`` equal to the RAS array;
+   ``resample_nifti`` to 1.5 mm and back (seconds, shapes, sform scales,
+   the head's Dice and mean); ``native.label_components_host`` against the
+   card's ``label_components`` on convert_evaluate's three truth masks
+   (the same ids; host ms against card ms, the card's rounds).
 
 ``python3 chip_smoke.py --e2e-dice`` builds the kernels and then, instead
 of the phases, runs ``eval/e2e.run_e2e_accuracy`` at the e2e accuracy
@@ -188,7 +195,7 @@ then, instead of the phases, runs the crossover study
 patients, 168 pairs, that mode forced, seed 0) and prints its held-out
 Dice (fault C1's rule: svf at or above learned at 168 pairs).
 ``python3 chip_smoke.py --convert-evaluate`` builds the kernels and runs
-only the convert_evaluate phase; ``python3 chip_smoke.py --dicom`` builds
+only the convert_evaluate and surface phases; ``python3 chip_smoke.py --dicom`` builds
 them and runs only dicom_predict and oasis3_prep; ``python3 chip_smoke.py
 --mesh`` builds them and runs only mesh and mesh_train.
 
@@ -3685,6 +3692,124 @@ def phase_convert_evaluate(kernels, work, smi):
     return launches
 
 
+SURFACE_SPACING = (1.5, 1.5, 1.5)  # resample_nifti's target on the way down
+
+
+def phase_surface(work, smi, flair):
+    """The last of the JAX package's public surface on the card's machine:
+
+    1. the main path's FLAIR saved in LPS (the sform's x and y columns
+       negated, the array flipped to match) and read back with
+       ``load_nifti(force_RAS=True)``: equal to the RAS array;
+    2. ``resample_nifti`` of that file to 1.5 mm and back to 1 mm (order 1),
+       seconds for each, the shapes and sform scales, the head mask's Dice
+       and mean against the original;
+    3. ``native.label_components_host`` (``cc3d.cpp``) against the card's
+       ``label_components`` compacted to 1..n, on convert_evaluate's three
+       truth masks: the same ids and count, host ms against card ms, the
+       card's rounds.
+    """
+    import torch
+    from scipy import ndimage
+
+    from deepwmh_tpu_torch import native
+    from deepwmh_tpu_torch.core import nifti
+    from deepwmh_tpu_torch.ops.components import label_components
+
+    t_phase = time.perf_counter()
+    # 1. an LPS file read as RAS
+    lps_data = np.flip(flair, (0, 1))
+    lps = nifti.NiftiHeader()
+    lps.set_shape(FLAGSHIP_SHAPE)
+    lps.set_zooms(FLAGSHIP_SPACING)
+    srow = np.zeros((3, 4), np.float32)
+    srow[:3, :3] = np.diag(np.array((-1.0, -1.0, 1.0)) * FLAGSHIP_SPACING)
+    srow[:, 3] = (95.5, 111.5, -95.5)
+    lps.srow = srow
+    lps.sform_code = 1
+    lps_path = os.path.join(work, "surface_lps.nii.gz")
+    t0 = time.perf_counter()
+    nifti.save_nifti(lps_data, lps, lps_path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ras, hdr = nifti.load_nifti(lps_path, force_RAS=True)
+    read_s = time.perf_counter() - t0
+    check(nifti.aff2axcodes(hdr.affine) == ("L", "P", "S") and ras.shape == FLAGSHIP_SHAPE
+          and np.array_equal(ras, flair),
+          "the LPS file read with force_RAS differs from the RAS array")
+
+    # 2. to 1.5 mm and back
+    down = os.path.join(work, "surface_down.nii.gz")
+    back = os.path.join(work, "surface_back.nii.gz")
+    t0 = time.perf_counter()
+    nifti.resample_nifti(lps_path, SURFACE_SPACING, down, order=1)
+    down_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nifti.resample_nifti(down, FLAGSHIP_SPACING, back, order=1)
+    back_s = time.perf_counter() - t0
+    shapes, scales, read = {}, {}, {}
+    for name, path in (("down", down), ("back", back)):
+        read[name], h = nifti.load_nifti(path)
+        shapes[name] = list(read[name].shape)
+        scales[name] = np.linalg.norm(h.srow[:3, :3], axis=0).tolist()
+    want_down = [int(np.round(s * a / b)) for s, a, b in zip(FLAGSHIP_SHAPE, FLAGSHIP_SPACING,
+                                                             SURFACE_SPACING)]
+    data = read["back"]
+    head, head_back = lps_data > 200, data > 200
+    head_dice = 2 * int((head & head_back).sum()) / (int(head.sum()) + int(head_back.sum()))
+    # the texture's mean away from the blurred rim
+    inner = ndimage.binary_erosion(head, iterations=3)
+    mean_rel = abs(np.mean(data[inner], dtype=np.float64)
+                   / np.mean(lps_data[inner], dtype=np.float64) - 1)
+    check(shapes["down"] == want_down and shapes["back"] == list(FLAGSHIP_SHAPE)
+          and np.allclose(scales["down"], SURFACE_SPACING) and np.allclose(scales["back"], 1.0)
+          and np.isfinite(data).all() and head_dice > 0.98 and mean_rel < 0.01,
+          "resample_nifti: shapes %s, sform scales %s, head Dice %.4f, mean off by %.4f"
+          % (shapes, scales, head_dice, mean_rel))
+
+    # 3. host labelling against the card's
+    dev = torch.device(DEVICE)
+    masks = {}
+    truths = os.path.join(work, "eval_truth")
+    for case in ("conv0", "syn1", "syn2"):
+        masks[case] = nifti.load_nifti_simple(os.path.join(truths, case + ".nii")) > 0.5
+
+    def card_ids(m):
+        root, rounds = label_components(m, return_rounds=True)
+        root = root.reshape(-1)
+        N = root.numel()
+        rank = torch.cumsum(root == torch.arange(N, device=root.device), 0)
+        ids = torch.where(root < N, rank[root.clamp(max=N - 1)], 0)
+        return ids.reshape(m.shape), int(rank[-1]), rounds
+
+    labelling = {}
+    for case, m in masks.items():
+        m_dev = torch.from_numpy(m).to(dev)
+        labels, n = native.label_components_host(m)
+        ids, n_card, rounds = card_ids(m_dev)
+        check(n == n_card and np.array_equal(ids.cpu().numpy(), labels),
+              "%s: host labelling (%d components) differs from the card's (%d)" % (case, n, n_card))
+        # timed on a second call each
+        t0 = time.perf_counter()
+        native.label_components_host(m)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_ids(m_dev)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        labelling[case] = {"components": n, "voxels": int(m.sum()), "host_ms": host_ms,
+                           "card_ms": card_ms, "card_rounds": rounds}
+    emit({"phase": "surface", "nvidia_smi": smi, "shape": list(FLAGSHIP_SHAPE),
+          "force_ras": {"axcodes": "LPS", "equal_to_ras": True, "write_s": write_s,
+                        "read_s": read_s},
+          "resample": {"to_mm": list(SURFACE_SPACING), "order": 1, "down_s": down_s,
+                       "back_s": back_s, "shapes": shapes, "sform_scales": scales,
+                       "head_dice_round_trip": head_dice, "head_mean_rel_diff": mean_rel},
+          "labelling": labelling, "labelling_ids_equal": True,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 DICOM_ORIGIN = (-95.5, 130.0, -71.0)  # mm, LPS, of the flagship series' first voxel
 DICOM_SMALL_SLICES = 16  # slices of each other syntax's series
 DICOM_PLAIN_SLICES = 4  # slices each native route also decodes in Python
@@ -4200,8 +4325,8 @@ def main(argv=None) -> int:
     parser.add_argument("--repeats", type=int, default=1,
                         help="--e2e-dice's runs of each (seed, mode) (default 1)")
     parser.add_argument("--convert-evaluate", action="store_true",
-                        help="Instead of every phase, only convert_evaluate (after the "
-                        "build).")
+                        help="Instead of every phase, only convert_evaluate and surface "
+                        "(after the build).")
     parser.add_argument("--dicom", action="store_true",
                         help="Instead of every phase, only dicom_predict and oasis3_prep "
                         "(after the build).")
@@ -4260,6 +4385,7 @@ def main(argv=None) -> int:
     if args.convert_evaluate:
         with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=HERE) as work:
             run(phase_convert_evaluate, kernels, work, smi)
+            run(phase_surface, work, smi, synthetic_flair(FLAGSHIP_SHAPE, seed=0))
         emit({"phase": "done", "total_s": time.perf_counter() - t_start, "phase_s": phase_s,
               "nvidia_smi": smi})
         print(smi, flush=True)
@@ -4306,6 +4432,7 @@ def main(argv=None) -> int:
         mesh_train_launches = run(phase_mesh_train, kernels, work, smi, cases)
         train_launches, train_plan = run(phase_train_e2e, kernels, work, smi, flair, pkg)
         convert_launches = run(phase_convert_evaluate, kernels, work, smi)
+        run(phase_surface, work, smi, flair)
         dicom_launches, _, src_nii, dicom_out = run(phase_dicom_predict, kernels, work, smi, pkg)
         run(phase_oasis3_prep, work, smi, src_nii, os.path.join(dicom_out, DICOM_FOV), cases)
     t0 = time.perf_counter()

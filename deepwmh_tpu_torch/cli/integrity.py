@@ -1,11 +1,13 @@
 """System integrity check for the port: torch importable, the requested
 device usable, and on CUDA one launch of the instance-norm statistics
-kernel (which builds it at first use) agreeing with its plain version."""
+kernel (which builds it at first use) agreeing with its plain version.
+With ``require_accelerator`` a run that resolves to the CPU is not ok."""
 
 from __future__ import annotations
 
 
-def check_system_integrity(device=None, verbose: bool = True) -> bool:
+def check_system_integrity(device=None, verbose: bool = True,
+                           require_accelerator: bool = False) -> bool:
     def say(msg):
         if verbose:
             print(msg)
@@ -26,6 +28,9 @@ def check_system_integrity(device=None, verbose: bool = True) -> bool:
         say("[!!] %s" % e)
         return False
     if dev.type == "cpu":
+        if require_accelerator:
+            say("[!!] no CUDA device in use (running on the CPU will be slow)")
+            return False
         say("[OK] running on the CPU, as requested")
         return True
     say("[OK] %s: %s" % (dev, torch.cuda.get_device_name(dev)))

@@ -2,7 +2,8 @@
 
 The port's own copy of ``deepwmh_tpu.core.nifti`` (the port imports nothing
 of the JAX package): single-file ``.nii`` / ``.nii.gz`` volumes,
-scl_slope/scl_inter scaling, qform/sform affines and pixdim extraction.
+scl_slope/scl_inter scaling, qform/sform affines, RAS+ reorientation,
+pixdim extraction and nearest/linear resampling, all on the host in numpy.
 ``.nii.gz`` reads and writes go through zlib in the port's native host
 library (``native.gzip_inflate_host`` / ``gzip_deflate_host``, the JAX
 package's ``cc3d.cpp``): the same volume always writes the same bytes, the
@@ -247,11 +248,14 @@ def _read_raw(path: str) -> bytes:
     return out
 
 
-def load_nifti(path, return_type="float32"):
+def load_nifti(path, return_type="float32", force_RAS=False, nan=None):
     """Load a NIfTI volume. Returns (data, header).
 
     Matches the reference contract (deepwmh/utilities/data_io.py:223-263):
-    scl_slope/inter applied (like nibabel get_fdata), dtype cast.
+    scl_slope/inter applied (like nibabel get_fdata), optional NaN
+    replacement, optional RAS+ flip, dtype cast, in that order. With
+    ``force_RAS`` the array may be a view with negative strides: pass it
+    through ``np.ascontiguousarray`` before ``torch.from_numpy``.
     """
     raw = _read_raw(path)
     hdr, vox_offset = _parse_header(raw)
@@ -269,6 +273,10 @@ def load_nifti(path, return_type="float32"):
         and slope != 0.0 and (slope != 1.0 or inter != 0.0)
     ):
         data = data.astype(np.float64) * slope + inter
+    if nan is not None:
+        data = np.nan_to_num(data, nan=nan)
+    if force_RAS:
+        data = ras_fix(np.asarray(data), hdr.affine)
     if return_type is not None:
         data = np.asarray(data, dtype=return_type)
     else:
@@ -350,6 +358,12 @@ def save_nifti_scaled_int16(data, header, path, level=2):
     _write_payload(payload, path, level=level)
 
 
+def save_nifti_simple(data, path):
+    """Save with a default identity-affine 1mm-isotropic header
+    (reference data_io.py:293-296)."""
+    save_nifti(data, NiftiHeader(), path)
+
+
 def copy_nifti(src, dst, level=4) -> None:
     """Copy a NIfTI file, compressing or decompressing the bytes when the
     two names differ in their ``.gz`` suffix, so the copy reads back."""
@@ -385,3 +399,92 @@ def try_load_nifti(path) -> bool:
     except Exception:
         return False
 
+
+def ras_fix(data: np.ndarray, affine: np.ndarray) -> np.ndarray:
+    """Flip axes so data is in RAS+ orientation
+    (reference data_io.py:208-221)."""
+    codes = aff2axcodes(affine)
+    for axis, (code, want) in enumerate(zip(codes, "RAS")):
+        if code != want:
+            data = np.flip(data, axis=axis)
+    return data
+
+
+def aff2axcodes(affine: np.ndarray) -> tuple:
+    """Axis direction codes of an affine, e.g. ('R','A','S'): each column
+    takes the largest-magnitude row not yet taken (``argsort``'s order
+    breaks ties)."""
+    R = np.asarray(affine)[:3, :3]
+    codes = []
+    used = set()
+    labels = (("L", "R"), ("P", "A"), ("I", "S"))
+    for col in range(3):
+        v = R[:, col]
+        order = np.argsort(-np.abs(v))
+        row = next(int(r) for r in order if int(r) not in used)
+        used.add(row)
+        neg, pos = labels[row]
+        codes.append(pos if v[row] >= 0 else neg)
+    return tuple(codes)
+
+
+def resample_nifti(source_path, new_resolution, output_path, order=0):
+    """Resample a NIfTI file to a new physical resolution
+    (reference data_io.py:321-340).
+
+    order=0 nearest, order=1 trilinear.
+    """
+    data, hdr = load_nifti(source_path)
+    old = np.array(get_nifti_pixdim(source_path), dtype=np.float64)
+    new = np.array(new_resolution, dtype=np.float64)
+    scale = old / new
+    new_shape = tuple(int(np.round(s * z)) for s, z in zip(data.shape[:3], scale))
+    out = _resample_volume(data, new_shape, order=order)
+    out_hdr = hdr.copy()
+    out_hdr.set_shape(new_shape)
+    out_hdr.set_zooms(list(new) + list(hdr.zooms[3:]))
+    # each sform column rescaled to the new voxel size: its unit direction
+    # (the column over its own norm, not pixdim, so a stale pixdim cannot
+    # corrupt the geometry) times the new zoom
+    if out_hdr.sform_code > 0:
+        srow = np.array(out_hdr.srow)
+        for i in range(3):
+            norm = np.linalg.norm(srow[:3, i])
+            if norm > 0:
+                srow[:3, i] *= new[i] / norm
+        out_hdr.srow = srow
+    save_nifti(out, out_hdr, output_path)
+
+
+def _resample_volume(data: np.ndarray, new_shape, order=1) -> np.ndarray:
+    """Separable numpy resampling (nearest / linear), endpoint-aligned:
+    positions in f64, linear weights in f32."""
+    out = np.asarray(data, dtype=np.float32)
+    for axis, n_new in enumerate(new_shape):
+        n_old = out.shape[axis]
+        if n_new == n_old:
+            continue
+        if n_new == 1 or n_old == 1:
+            idx = np.zeros(n_new, dtype=np.int64)
+            out = np.take(out, idx, axis=axis)
+            continue
+        x = np.arange(n_new) * (n_old - 1) / (n_new - 1)
+        if order == 0:
+            idx = np.round(x).astype(np.int64)
+            out = np.take(out, idx, axis=axis)
+        else:
+            lo = np.floor(x).astype(np.int64)
+            hi = np.minimum(lo + 1, n_old - 1)
+            w = (x - lo).astype(np.float32)
+            shape = [1] * out.ndim
+            shape[axis] = n_new
+            w = w.reshape(shape)
+            out = np.take(out, lo, axis=axis) * (1 - w) + np.take(out, hi, axis=axis) * w
+    return out
+
+
+def nifti_main_axis(pixdim) -> str:
+    """'sagittal' / 'coronal' / 'axial' from thickest direction
+    (reference data_io.py:342-351)."""
+    assert len(pixdim) == 3
+    return ["sagittal", "coronal", "axial"][int(np.argmax(pixdim))]

@@ -1,23 +1,28 @@
 """The host C++ hot loops (the DICOM import's decoders, the NIfTI codec's
-gzip) and their ``ctypes`` loader.
+gzip, 3D component labelling) and their ``ctypes`` loader.
 
 ``jpegl.cpp`` (the lossless-JPEG Huffman pass and predictor reconstruction),
 ``jls.cpp`` (the JPEG-LS scan decoder), ``j2k_t1.cpp`` (the JPEG 2000
 Tier-1 code-block decoder) and ``cc3d.cpp`` (zlib's gzip inflate and
-deflate for ``core/nifti.py``; its component labelling is not wired in, as
-labelling runs on the card in ``ops/components``) build together with
+deflate for ``core/nifti.py``, and the two-pass union-find labelling of a
+6-connected mask behind ``label_components_host`` and
+``remove_small_components_host``) build together with
 ``g++ -O3 -fPIC -shared -std=c++17 ... -lz`` at first use into one shared
 library under ``deepwmh_tpu_torch/_build/``, named by a hash of the
 sources, the compiler and the flags. Nothing is built or loaded at import
 time.
 
 A missing compiler or a failed build raises with the compiler's output: the
-import and the NIfTI codec never route quietly to Python. A decoder wrapper
-returns ``None`` only when the library declines a stream (an error code);
-the calling codec's Python decoder then decides, so a malformed stream gives
-the same result on either path. A gzip stream zlib cannot read raises.
-Inside ``python_path()`` every wrapper declines, which is how the Python
-versions (the codecs' decoders, Python's ``gzip``) are run on purpose.
+import, the NIfTI codec and the labelling never route quietly to Python. A
+decoder wrapper returns ``None`` only when the library declines a stream (an
+error code); the calling codec's Python decoder then decides, so a malformed
+stream gives the same result on either path. A gzip stream zlib cannot read
+raises. Inside ``python_path()`` every decoder and gzip wrapper declines,
+which is how the Python versions (the codecs' decoders, Python's ``gzip``)
+are run on purpose. The labelling has no Python version and ignores
+``python_path()``; its ids (components numbered 1..n by their first voxel
+in raster order) are those ``eval/metrics`` forms on the card from
+``ops/components.label_components``.
 
 ``CALLS`` counts each function's native calls, ``PYTHON_CALLS`` the calls
 that the Python versions took over, by the same names.
@@ -41,7 +46,7 @@ SOURCES = ("jpegl.cpp", "jls.cpp", "j2k_t1.cpp", "cc3d.cpp")
 CXX_FLAGS = ("-O3", "-Wall", "-fPIC", "-shared", "-std=c++17")
 LINK_FLAGS = ("-lz",)  # after the sources, as the JAX package's Makefile links
 FUNCTIONS = ("jpegl_decode_diffs", "jpegl_reconstruct", "jls_decode_scan", "j2k_decode_block",
-             "gzip_inflate", "gzip_deflate")
+             "gzip_inflate", "gzip_deflate", "label_components_3d", "remove_small_components")
 CALLS = dict.fromkeys(FUNCTIONS, 0)
 PYTHON_CALLS = dict.fromkeys(FUNCTIONS, 0)
 
@@ -147,6 +152,10 @@ def _bind(lib) -> None:
     lib.gzip_deflate.argtypes = [u8p, i64, u8p, i64, i32]
     lib.gzip_set_chunk_for_testing.restype = None
     lib.gzip_set_chunk_for_testing.argtypes = [i64]
+    lib.label_components_3d.restype = i32
+    lib.label_components_3d.argtypes = [u8p, i32, i32, i32, i32p]
+    lib.remove_small_components.restype = i32
+    lib.remove_small_components.argtypes = [u8p, i32, i32, i32, i64]
 
 
 def get_lib():
@@ -163,6 +172,16 @@ def get_lib():
                 _bind(lib)
                 _lib = lib
     return _lib
+
+
+def available() -> bool:
+    """Whether the library can be had here (built, or buildable and
+    loadable); the wrappers themselves raise instead."""
+    try:
+        get_lib()
+    except NativeLibraryError:
+        return False
+    return True
 
 
 def _u8(data) -> tuple:
@@ -234,6 +253,43 @@ def j2k_decode_block_host(data: bytes, w, h, orient, n_passes, msb_plane, segsym
     rc = lib.j2k_decode_block(ptr, len(src), int(w), int(h), int(orient), int(n_passes),
                               int(msb_plane), 1 if segsym else 0, _i64(out))
     return out.reshape(int(h), int(w)) if rc == 0 else None
+
+
+# ---------------------------------------------------------------------- #
+# 3D connected components (6-connectivity)
+# ---------------------------------------------------------------------- #
+
+
+def _mask_u8(mask: np.ndarray):
+    m = np.ascontiguousarray(np.asarray(mask) > 0.5, dtype=np.uint8)
+    if m.ndim != 3:
+        raise ValueError("the labelling takes a [D, H, W] mask, got shape %s" % (m.shape,))
+    return m, m.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def label_components_host(mask: np.ndarray):
+    """(int32 labels [D,H,W] with ids 1..n in raster order of each
+    component's first voxel, 0 on background; n) of ``mask > 0.5``,
+    6-connected. Raises ``NativeLibraryError`` when the library cannot be
+    had."""
+    lib = get_lib()
+    m, ptr = _mask_u8(mask)
+    labels = np.empty(m.shape, np.int32)
+    count("label_components_3d")
+    n = lib.label_components_3d(ptr, *m.shape,
+                                labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return labels, int(n)
+
+
+def remove_small_components_host(mask: np.ndarray, min_volume: int) -> np.ndarray:
+    """``mask > 0.5`` without its 6-connected components of fewer than
+    ``min_volume`` voxels, as f32. Raises ``NativeLibraryError`` when the
+    library cannot be had."""
+    lib = get_lib()
+    m, ptr = _mask_u8(mask)
+    count("remove_small_components")
+    lib.remove_small_components(ptr, *m.shape, int(min_volume))
+    return m.astype(np.float32)
 
 
 # ---------------------------------------------------------------------- #

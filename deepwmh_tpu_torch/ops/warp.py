@@ -9,11 +9,13 @@ added to the identity grid. ``sample_volume`` follows ``jax.scipy.ndimage.
 map_coordinates`` with ``mode="constant"``: order 0 rounds half away from
 zero (torch's ``round`` and ``grid_sample``'s nearest mode round half to
 even), and order 1 sums the 8 corner terms in map_coordinates' order, each
-corner outside the volume contributing 0 on its own. ``sample_channels``
-has its own arithmetic, that of the JAX function of the same name: floor
-indices and fractions, the corners in (z, y, x) order, each term
-``weight * where(valid, value, 0)`` with the weight a product of three
-factors. Everything outside a volume samples as 0.
+corner outside the volume contributing ``cval`` on its own.
+``sample_channels`` has its own arithmetic, that of the JAX function of the
+same name: floor indices and fractions, the corners in (z, y, x) order, each
+term ``weight * where(valid, value, cval)`` with the weight a product of
+three factors. ``cval`` (default 0) is the fill value outside a volume, the
+JAX functions' constant extrapolation; the default gives the bits of an
+explicit 0.
 
 Both samplers and ``rotation_matrix`` also take a batch on a leading axis
 (batched pair registration): volume b is sampled at its own coordinates and
@@ -53,9 +55,9 @@ def _nodes(coord: torch.Tensor, order: int):
     return [(index, 1 - upper_weight), (index + 1, upper_weight)]
 
 
-def sample_volume(vol, coords, order: int = 1) -> torch.Tensor:
+def sample_volume(vol, coords, order: int = 1, cval: float = 0.0) -> torch.Tensor:
     """Sample ``vol`` [D,H,W] at ``coords`` [3, ...]: order 0 nearest, 1
-    trilinear, 0 outside. Returns f32 of ``coords.shape[1:]``. A batch
+    trilinear, ``cval`` outside. Returns f32 of ``coords.shape[1:]``. A batch
     ``vol`` [B,D,H,W] with ``coords`` [B,3, ...] returns [B, ...]: volume
     b's depth index is offset by b*D, so its flat index by b*D*H*W."""
     if order not in (0, 1):
@@ -78,18 +80,19 @@ def sample_volume(vol, coords, order: int = 1) -> torch.Tensor:
     out = None
     for (i0, v0, w0), (i1, v1, w1), (i2, v2, w2) in itertools.product(*axes):
         lin = (i0 * sizes[1] + i1) * sizes[2] + i2
-        term = torch.where(v0 & v1 & v2, flat[lin], 0.0)
+        term = torch.where(v0 & v1 & v2, flat[lin], cval)
         if w0 is not None:
             term = w0 * w1 * w2 * term
         out = term if out is None else out + term
     return out
 
 
-def sample_channels(vols, coords) -> torch.Tensor:
+def sample_channels(vols, coords, cval: float = 0.0) -> torch.Tensor:
     """Trilinearly sample C volumes [C,D,H,W] at shared coords [3, ...] ->
-    f32 [C, ...]: each of the 8 corners is one gather of all channels on
-    the flattened [C, D*H*W] layout (the sampler of scaling-and-squaring,
-    whose 3-channel fields are resampled at every squaring). The per-axis
+    f32 [C, ...], ``cval`` outside: each of the 8 corners is one gather of
+    all channels on the flattened [C, D*H*W] layout (the sampler of
+    scaling-and-squaring, whose 3-channel fields are resampled at every
+    squaring). The per-axis
     indices, validity and weight factors are formed once and combined per
     corner in the JAX function's order. A batch ``vols`` [B,C,D,H,W] with
     ``coords`` [B,3, ...] returns [B,C, ...]: a corner is one ``gather``
@@ -118,10 +121,10 @@ def sample_channels(vols, coords) -> torch.Tensor:
     if lead:
         def corner(idx, valid, weight):  # [B, M] each
             vals = flat.gather(2, idx[:, None, :].expand(-1, c, -1))
-            return weight[:, None, :] * torch.where(valid[:, None, :], vals, 0.0)
+            return weight[:, None, :] * torch.where(valid[:, None, :], vals, cval)
     else:
         def corner(idx, valid, weight):  # [M] each
-            return weight[None, :] * torch.where(valid[None, :], flat[:, idx], 0.0)
+            return weight[None, :] * torch.where(valid[None, :], flat[:, idx], cval)
     out = None
     for (l0, v0, w0), (l1, v1, w1) in itertools.product(axes[0], axes[1]):
         l01, v01, w01 = l0 + l1, v0 & v1, w0 * w1
@@ -131,30 +134,32 @@ def sample_channels(vols, coords) -> torch.Tensor:
     return out.reshape(out_shape)
 
 
-def affine_warp(vol, matrix, order: int = 1, center=None) -> torch.Tensor:
+def affine_warp(vol, matrix, out_shape=None, order: int = 1, cval: float = 0.0,
+                center=None) -> torch.Tensor:
     """Resample ``vol`` through a 3x4 (or 4x4) affine: for output voxel o
     the input coordinate is A @ o + t, or A @ (o - c) + c + t about
     ``center`` c (the rotation and scaling augmentations). The output has
-    ``vol``'s shape."""
+    ``out_shape``, by default ``vol``'s shape; ``cval`` outside ``vol``."""
     m = torch.as_tensor(matrix, dtype=torch.float32).to(vol.device)
     if m.shape == (4, 4):
         m = m[:3]
     A, t = m[:, :3], m[:, 3]
-    shape = tuple(int(s) for s in vol.shape)
+    shape = tuple(int(s) for s in (out_shape or vol.shape))
     grid = identity_grid(shape, vol.device).reshape(3, -1)
     if center is not None:
         c = torch.as_tensor(center, dtype=torch.float32).to(vol.device).reshape(3, 1)
         coords = A @ (grid - c) + c + t[:, None]
     else:
         coords = A @ grid + t[:, None]
-    return sample_volume(vol, coords.reshape((3,) + shape), order=order)
+    return sample_volume(vol, coords.reshape((3,) + shape), order=order, cval=cval)
 
 
-def displacement_warp(vol, disp, order: int = 1) -> torch.Tensor:
+def displacement_warp(vol, disp, order: int = 1, cval: float = 0.0) -> torch.Tensor:
     """Resample through a dense displacement field ``disp`` [3,D,H,W] (voxel
-    offsets): out(o) = vol(o + disp(o)); a batch [B,D,H,W] through [B,3,D,H,W]."""
+    offsets): out(o) = vol(o + disp(o)), ``cval`` outside ``vol``; a batch
+    [B,D,H,W] through [B,3,D,H,W]."""
     grid = identity_grid(disp.shape[-3:], disp.device)
-    return sample_volume(vol, grid + disp, order=order)
+    return sample_volume(vol, grid + disp, order=order, cval=cval)
 
 
 def _affine_rows(matrix, device):

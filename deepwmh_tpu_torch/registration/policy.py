@@ -49,6 +49,10 @@ QUALITY_INSURANCE_FACTOR = 2.0
 # the largest cohort (pairs) with a full-loop quality measurement that
 # favours svf (module docstring); auto keeps svf up to it (not a timing)
 SVF_QUALITY_MEASURED_PAIRS = 168
+# the JAX package's bare pair-count crossover (the pair count near which its
+# two modes' walls were equal on its own cost model), kept under its name;
+# neither package's auto decision reads it
+LEARNED_CROSSOVER_PAIRS = 150
 
 
 def estimated_totals_s(n_pairs: int, volume_voxels: int | None = None):

@@ -10,8 +10,11 @@ and the fields' squared-difference regulariser.
   sample n in bin k is relu(1 - |p_n - k|), the two-bin linear split
   written densely. It is one deterministic matmul (a scatter-add split
   would vary in its last bits on the card) and gradients flow to both
-  images. The samples are few (at most 1/4 of a 48x56x48 level), so the
-  [nbins, N] weights are formed whole.
+  images. The [nbins, N] weights are formed whole up to ``chunk`` samples
+  (2^21, as the JAX function; the flagship's finest affine level, shrink 2
+  of 192x224x192, has 1,032,192); past it the histogram is a sum of chunks in order, each one
+  recomputed in the backward (``torch.utils.checkpoint``, JAX's remat) so
+  the weights stay bounded.
 - LNCC's local sums are separable zero-bounded box sums of 2r+1 taps over
   the stacked moments, added tap after tap in window order: the same bits
   as the JAX package's ``reduce_window`` (the variance terms cancel, so
@@ -37,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def _order_stat_weights(n: int, q: float):
@@ -88,28 +92,46 @@ def _abs(x) -> torch.Tensor:
     return torch.where(x >= 0, x, -x)
 
 
-def soft_joint_histogram(a, b, nbins: int = 32, mask=None, batch: bool = False) -> torch.Tensor:
+def soft_joint_histogram(a, b, nbins: int = 32, mask=None, chunk: int = 1 << 21,
+                         batch: bool = False) -> torch.Tensor:
     """Normalised differentiable joint histogram p_ab [nbins, nbins] of two
-    [0,1] volumes (module docstring); with ``batch``, [B, nbins, nbins]
-    from one batched product, each pair normalised by its own sum."""
+    [0,1] volumes (module docstring), summed over chunks of ``chunk``
+    samples; with ``batch``, [B, nbins, nbins] from one batched product a
+    chunk, each pair normalised by its own sum."""
     lead = tuple(a.shape[:1]) if batch else ()
     a = a.reshape(lead + (-1,))
     b = b.reshape(lead + (-1,))
     pa = _clip01(a) * (nbins - 1)
     pb = _clip01(b) * (nbins - 1)
+    w = None if mask is None else mask.reshape(lead + (-1,)).float()
     bins = torch.arange(nbins, dtype=torch.float32, device=a.device)
     zero = a.new_zeros(())
-    wa = torch.maximum(zero, 1.0 - _abs(pa[..., None, :] - bins[:, None]))
-    wb = torch.maximum(zero, 1.0 - _abs(pb[..., None, :] - bins[:, None]))
-    if mask is not None:
-        wb = wb * mask.reshape(lead + (-1,)).float()[..., None, :]
-    hist = wa @ wb.transpose(-1, -2)
+
+    def hist_chunk(pa_c, pb_c, w_c):
+        wa = torch.maximum(zero, 1.0 - _abs(pa_c[..., None, :] - bins[:, None]))
+        wb = torch.maximum(zero, 1.0 - _abs(pb_c[..., None, :] - bins[:, None]))
+        if w_c is not None:
+            wb = wb * w_c[..., None, :]
+        return wa @ wb.transpose(-1, -2)
+
+    n = pa.shape[-1]
+    if n <= chunk:
+        hist = hist_chunk(pa, pb, w)
+    else:
+        grads = torch.is_grad_enabled() and (pa.requires_grad or pb.requires_grad)
+        hist = None
+        for lo in range(0, n, chunk):
+            args = (pa[..., lo:lo + chunk], pb[..., lo:lo + chunk],
+                    None if w is None else w[..., lo:lo + chunk])
+            part = checkpoint(hist_chunk, *args, use_reentrant=False) if grads \
+                else hist_chunk(*args)
+            hist = part if hist is None else hist + part
     return hist / torch.clamp(hist.sum((-2, -1), keepdim=True), min=1e-8)
 
 
 def mutual_information(a, b, nbins: int = 32, mask=None, batch: bool = False) -> torch.Tensor:
     """MI(a, b) >= 0, higher = better aligned; with ``batch``, [B]."""
-    p_ab = soft_joint_histogram(a, b, nbins, mask, batch)
+    p_ab = soft_joint_histogram(a, b, nbins, mask, batch=batch)
     p_a = p_ab.sum(-1, keepdim=True)
     p_b = p_ab.sum(-2, keepdim=True)
     eps = 1e-10

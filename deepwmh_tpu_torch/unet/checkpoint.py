@@ -127,13 +127,13 @@ def load_flax_params(folder: str, name: str = MODEL_BEST) -> dict:
     return load_checkpoint(folder, name)[0]
 
 
-def save_checkpoint(folder: str, name: str, params_tree: dict, opt_state=None,
+def save_checkpoint(folder: str, name: str, params: dict, opt_state=None,
                     meta: dict = None):
-    """Write ``{"params": params_tree}`` (and ``"opt_state"`` when given, a
+    """Write ``{"params": params}`` (a tree in flax's layout; and ``"opt_state"`` when given, a
     tree in flax's ``to_state_dict`` layout) as flax msgpack plus the JSON
     sidecar, the layout deepwmh_tpu's load_checkpoint reads."""
     os.makedirs(folder, exist_ok=True)
-    payload = {"params": params_tree}
+    payload = {"params": params}
     if opt_state is not None:
         payload["opt_state"] = opt_state
     tmp = os.path.join(folder, name + ".msgpack.tmp")

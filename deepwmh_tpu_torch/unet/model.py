@@ -252,3 +252,14 @@ def init_weights(model: UNet3D, generator: torch.Generator) -> UNet3D:
                 std = math.sqrt(1.0 / fan_in) / TRUNC_STD
                 p.copy_(truncated_normal(p.shape, generator) * std)
     return model
+
+
+def count_params(module_or_state_dict) -> int:
+    """Number of weights of a module (its parameters) or of a state dict
+    (its tensors): the count of ``deepwmh_tpu``'s ``count_params`` on the
+    same network's flax params."""
+    if isinstance(module_or_state_dict, nn.Module):
+        tensors = module_or_state_dict.parameters()
+    else:
+        tensors = module_or_state_dict.values()
+    return int(sum(t.numel() for t in tensors))

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -66,3 +67,11 @@ def preprocess_case(data, spacing, plan, normalize: bool = True):
     if normalize:
         vol = normalize_zscore(vol)
     return vol
+
+
+def fingerprint_dataset(shapes_spacings):
+    """[(shape, spacing)] -> (shapes, spacings) as f64 numpy arrays [n, 3],
+    the inputs of ``plan.plan_experiment``."""
+    shapes = np.array([list(s) for s, _ in shapes_spacings], dtype=np.float64)
+    spacings = np.array([list(sp) for _, sp in shapes_spacings], dtype=np.float64)
+    return shapes, spacings

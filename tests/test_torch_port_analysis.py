@@ -35,11 +35,12 @@ from deepwmh_tpu.ops import stats as jstats
 from deepwmh_tpu.ops.pallas_kernels import median3_pallas
 from deepwmh_tpu.pipeline import analysis as janalysis
 from deepwmh_tpu_torch.core import nifti
-from deepwmh_tpu_torch.ops import components, filters, grid, histogram, kernels, nll, stats
+from deepwmh_tpu_torch.ops import components, filters, grid, histogram, kernels, stats
 from deepwmh_tpu_torch.pipeline import analysis
 
-# deepwmh_tpu.ops re-exports the function nll under the module's name
+# both packages' ops re-export the function nll under the module's name
 jnll = importlib.import_module("deepwmh_tpu.ops.nll")
+nll = importlib.import_module("deepwmh_tpu_torch.ops.nll")
 
 RTOL = 1e-5
 ANOMALY_TOL = 1e-4  # of max |anomaly|

@@ -7,7 +7,8 @@ against one-case runs, K1 at the learned registration network's shapes
 (C = 8, 16, 32), registration's field gather on the card against the
 CPU, a tiny ``run_train`` on the card launching K1 and K2, the DICOM
 import's native host library built on the card's machine and equal to its
-Python versions, an 8-shard mesh on one card (the halo-sharded median
+Python versions, its host labelling equal to the card's at the flagship
+size, an 8-shard mesh on one card (the halo-sharded median
 and the flip-sharded sweep bit for bit against the unsharded ones) and a
 2-shard one (a data-parallel step leaving both replicas the same bits,
 ``register_pairs_mesh``'s blocks bit for bit against one batch each), K2
@@ -707,3 +708,24 @@ def test_native_import_equals_python_on_port_streams(cuda, route):
     assert native.PYTHON_CALLS[route] == 1
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, img)
+
+
+@pytest.mark.parametrize("density", [0.02, 0.2, 0.5])
+def test_native_labelling_equals_card_label_components(cuda, density):
+    """``cc3d.cpp``'s host labelling of a flagship-size 192x224x192 mask
+    against ``ops/components.label_components`` on the card, its root
+    labels (each component's minimum linear index) compacted to 1..n in
+    ascending order: the same ids and count."""
+    import numpy as np
+
+    from deepwmh_tpu_torch import native
+    from deepwmh_tpu_torch.ops.components import label_components
+
+    m = np.random.RandomState(int(density * 100)).rand(192, 224, 192) < density
+    labels, n = native.label_components_host(m)
+    root = label_components(torch.from_numpy(m).to(cuda)).reshape(-1)
+    N = root.numel()
+    rank = torch.cumsum(root == torch.arange(N, device=cuda), 0)
+    ids = torch.where(root < N, rank[root.clamp(max=N - 1)], 0).reshape(m.shape)
+    assert n == int(rank[-1]) > 0
+    np.testing.assert_array_equal(ids.cpu().numpy(), labels)
