@@ -5,8 +5,8 @@
 Phases, each printing JSON lines to stdout:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the build
-   of every CUDA kernel of the port from ``deepwmh_tpu_torch/csrc`` (and of
-   the min/max rate probe ``fmnmx_rate.cu``), with registers and spills;
+   of every CUDA kernel of the port from ``deepwmh_tpu_torch/csrc``, with
+   registers and spills;
 2. k1: K1's two kernels at every [N, M, C] the flagship forward gives them:
    the statistics kernel against its plain PyTorch version (and the same
    bits on a second call) with its back-to-back, device-only (profiler) and
@@ -30,12 +30,11 @@ Phases, each printing JSON lines to stdout:
 5. k2: the 3x3x3 median kernel against its plain version (value equality)
    at the flagship stage-1 call, an odd shape and 1x1x1, with the kernel's,
    the plain version's and an unfold + torch.median route's times beside
-   its bound, its min/max per output (counted and from the SASS) and the
-   card's min/max rate measured by the probe;
+   its bound and its min/max per output (counted and from the SASS);
 6. stage1: stage-1 NLL lesion analysis through ``LesionAnalyzer`` at
    192x224x192 1 mm with K = 10 synthetic registered references (one
    case), K2's launches from that run, the artifacts checked against the
-   planted lesions, then the device stages and host I/O of one case;
+   planted lesions, then the host I/O and analysis of one case;
 7. postproc_exact: spark removal and the brain mask on the card equal to the
    CPU's at 192x224x192;
 8. stage1_card_vs_cpu: the stage-1 core on the card against the CPU at
@@ -365,8 +364,8 @@ def phase_device(kernels):
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    # every kernel of the port, and the min/max rate probe of phase k2
-    sources = sorted({k.source for k in kernels.KERNELS.values()} | {"fmnmx_rate.cu"})
+    # every kernel of the port
+    sources = sorted({k.source for k in kernels.KERNELS.values()})
     t0 = time.perf_counter()
     libs = kernels.build(sources)
     build_s = time.perf_counter() - t0
@@ -1032,42 +1031,14 @@ def median3_minmax_executed(kernels, shape) -> int:
     return per_column * H * 32 * (-(-W // 32))
 
 
-def fmnmx_rate(kernels) -> dict:
-    """The card's f32 min/max issue rate, from csrc/fmnmx_rate.cu (64
-    min/max per round per thread on every SM)."""
-    import ctypes
-
-    import torch
-
-    lib_path = kernels.build(["fmnmx_rate.cu"])["fmnmx_rate.cu"]
-    lib = ctypes.CDLL(lib_path)
-    lib.fmnmx_rate.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p]
-    lib.fmnmx_rate.restype = ctypes.c_int
-    out = torch.empty(1, device=DEVICE)
-    blocks = torch.cuda.get_device_properties(0).multi_processor_count * 8
-    threads, rounds = 256, 4096
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run():
-        check(lib.fmnmx_rate(out.data_ptr(), blocks, threads, rounds, 0.5, stream) == 0,
-              "the FMNMX probe did not launch")
-
-    ms = cuda_ms(run, iters=5)
-    ops = 64 * rounds * blocks * threads
-    return {"fmnmx_per_s": ops / (ms / 1e3), "probe_ms": ms,
-            "probe_sass_fmnmx": sass_count(lib_path, "FMNMX")}
-
-
 def phase_k2(kernels):
     """K2 against its plain version (value equality) and the unfold+median
     library route at the flagship stage-1 call, an odd shape and 1x1x1,
-    beside the card's measured min/max rate. Returns the kernels-line entry,
-    timed at the flagship shape (one call per stage-1 case)."""
+    beside its bound. Returns the kernels-line entry, timed at the flagship
+    shape (one call per stage-1 case)."""
     import torch
 
     k2 = kernels.median3
-    rate = fmnmx_rate(kernels)
     shared = kernels.median27_shared_ops()
     # the SASS holds the walk's two leading slabs once and, in its loop,
     # two slabs, a pair and two selects for two outputs
@@ -1097,8 +1068,6 @@ def phase_k2(kernels):
             "ops_ms": executed / (F32_FLOP_PER_S / 2) * 1e3,
             # the first K2 design's count: 520 min/max per voxel at the same rate
             "ops_ms_520": kernels.median27_minmax_ops() * n / (F32_FLOP_PER_S / 2) * 1e3,
-            # the executed min/max at the rate measured on this card
-            "ops_ms_measured_rate": executed / rate["fmnmx_per_s"] * 1e3,
         }
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
         err = float((got - want).abs().max())
@@ -1108,7 +1077,7 @@ def phase_k2(kernels):
               "minmax_executed_per_output": executed / n,
               "outputs_per_thread": _cu_constant("median3.cu", "kChunk"),
               "sass_fmnmx": fmnmx, "sass_minmax_per_output": sass_per_output,
-              **rate, "max_abs_err": err,
+              "max_abs_err": err,
               "library_route": "F.pad + 3x unfold + torch.median(dim=-1)", **row})
         if shape == FLAGSHIP_SHAPE:
             entry = {
@@ -1167,8 +1136,9 @@ def phase_stage1(kernels, work, smi):
     """Stage-1 NLL lesion analysis through LesionAnalyzer at the flagship
     geometry with K = 10 references, one case (two until the serving and
     training phases joined the script's time); K2's launch count is that of
-    this run only. Then the same case stage by stage for where the time
-    goes, which must give the same anomaly and threshold."""
+    this run only. Then the same case step by step (reads, analysis, writes,
+    segmentation) for where the time goes, which must give the same anomaly
+    and threshold."""
     import torch
 
     from deepwmh_tpu_torch.core import nifti
@@ -1224,20 +1194,19 @@ def phase_stage1(kernels, work, smi):
     in_cb = float((lesions * (avg == 2)).sum())
     check(in_cb > 0, "no planted lesion lies in the class-2 (median) region")
 
-    # the same case stage by stage: host reads, the core's device stages
-    # (each between two synchronisations), artifact writes, segmentation
+    # the same case step by step: host reads, the analysis, artifact writes,
+    # segmentation
     an2 = LesionAnalyzer(os.path.join(work, "stage1_staged"), device=DEVICE)
     an2.add_case(cases[0], *inputs)
-    io, stage_s = {}, {}
+    io = {}
     loaded = _timed("read_inputs", lambda: an2._load_case(cases[0]), io)
     result, hdr, _ = _timed("analyze_case", lambda: an2.analyze_case(
-        cases[0], loaded=loaded, stage_s=stage_s), io)
+        cases[0], loaded=loaded), io)
     _timed("write_artifacts", lambda: an2._save_case_artifacts(cases[0], result, hdr, "+"), io)
     _timed("segmentation_and_pp", lambda: an2.analyze_and_do_segmentation("+"), io)
     check(result.threshold == first["threshold"] and np.array_equal(result.anomaly,
                                                                    first["anomaly_score"]),
           "the staged rerun differs from the main run")
-    stage_sum = sum(stage_s.values())
     batch, batch_launches = stage1_batch(kernels)
     emit({"phase": "stage1", "nvidia_smi": smi, "shape": list(FLAGSHIP_SHAPE),
           "spacing": list(FLAGSHIP_SPACING), "K": STAGE1_K, "cases": len(cases),
@@ -1247,11 +1216,7 @@ def phase_stage1(kernels, work, smi):
           "lesion_voxels_in_class2": in_cb,
           "seg_fraction": float(first["segmentation"].mean()),
           "seg_pp_fraction": float(first["segmentation_pp"].mean()),
-          "device_stage_s": stage_s, "device_stage_sum_s": stage_sum,
-          "median3_share_of_device": stage_s["median_3mm"] / stage_sum,
-          # analyze_case outside the device stages: the host's stacking and
-          # label-count work and the copies to and from the card
-          "host_s": io, "analyze_case_outside_stages_s": io["analyze_case"] - stage_sum,
+          "host_s": io,
           "batch": batch})
     return launches, (inputs, out), batch_launches
 

@@ -8,7 +8,8 @@ pixdim extraction and nearest/linear resampling, all on the host in numpy.
 library (``native.gzip_inflate_host`` / ``gzip_deflate_host``, the JAX
 package's ``cc3d.cpp``): the same volume always writes the same bytes, the
 JAX package's bytes. Inside ``native.python_path()`` Python's ``gzip``
-(``mtime=0``) does the same work, the plain version.
+(``mtime=0``) does the same work, the plain version. A read is the span
+``nifti.read`` and a write ``nifti.write`` (``utils/profiling.span``).
 
 Only the NIfTI-1 single-file format is supported (magic ``n+1``), which is
 what every tool in the WMH pipeline consumes and produces.
@@ -25,6 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from deepwmh_tpu_torch import native
+from deepwmh_tpu_torch.utils.profiling import span
 
 # NIfTI-1 datatype codes -> numpy dtypes
 _DTYPES = {
@@ -248,6 +250,7 @@ def _read_raw(path: str) -> bytes:
     return out
 
 
+@span("nifti.read")
 def load_nifti(path, return_type="float32", force_RAS=False, nan=None):
     """Load a NIfTI volume. Returns (data, header).
 
@@ -319,6 +322,7 @@ def _write_payload(payload, path, level=4):
         raise
 
 
+@span("nifti.write")
 def save_nifti(data, header, path, dtype="float32", level=4):
     """Save data with an existing header (geometry preserved), as float32.
 
@@ -337,6 +341,7 @@ def save_nifti(data, header, path, dtype="float32", level=4):
     _write_payload(payload, path, level=level)
 
 
+@span("nifti.write")
 def save_nifti_scaled_int16(data, header, path, level=2):
     """Save as int16 with a scl_slope chosen from the data range (standard
     NIfTI intensity scaling: ``load_nifti`` recovers the values to about
@@ -364,6 +369,7 @@ def save_nifti_simple(data, path):
     save_nifti(data, NiftiHeader(), path)
 
 
+@span("nifti.write")
 def copy_nifti(src, dst, level=4) -> None:
     """Copy a NIfTI file, compressing or decompressing the bytes when the
     two names differ in their ``.gz`` suffix, so the copy reads back."""

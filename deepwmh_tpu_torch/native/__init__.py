@@ -40,6 +40,8 @@ import threading
 
 import numpy as np
 
+from deepwmh_tpu_torch.utils.profiling import span
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("jpegl.cpp", "jls.cpp", "j2k_t1.cpp", "cc3d.cpp")
@@ -115,8 +117,9 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the library if it is missing; returns its path. Raises with
-    the compiler's output when the build fails."""
+    """Compile the library if it is missing (the span ``native.build``);
+    returns its path. Raises with the compiler's output when the build
+    fails."""
     out = library_path()
     if os.path.isfile(out):
         return out
@@ -124,8 +127,9 @@ def build() -> str:
     tmp = "%s.tmp-%d" % (out, os.getpid())
     cmd = [_compiler(), *CXX_FLAGS, *(os.path.join(_HERE, s) for s in SOURCES), *LINK_FLAGS,
            "-o", tmp]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                          timeout=300)
+    with span("native.build"):
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, timeout=300)
     if proc.returncode:
         raise NativeLibraryError("building the native library failed (%s):\n%s"
                                  % (" ".join(cmd), proc.stdout))

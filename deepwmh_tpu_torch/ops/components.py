@@ -8,7 +8,10 @@ per connectivity axis a segmented min over contiguous foreground runs, then
 two pointer jumps (label = label[label]), until nothing changes. Torch has
 no segmented scan, so a run-min is built from run ids (a cumsum of run
 starts), ``scatter_reduce(..., "amin")`` and a gather. Labels are int64
-(torch's index type).
+(torch's index type). Each round waits on the device for its test of
+change, so a labelling is the span ``components.label``
+(``utils/profiling.span``), the one mechanism the spark removal, the brain
+mask and the component filtering share.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from deepwmh_tpu_torch.ops.morphology import binary_erosion_2d
+from deepwmh_tpu_torch.utils.profiling import span
 
 
 def _run_min(lbl, m, ax: int, N: int):
@@ -33,6 +37,7 @@ def _run_min(lbl, m, ax: int, N: int):
     return mins[rid].reshape(lt.shape).movedim(-1, ax)
 
 
+@span("components.label")
 def label_components(mask, axes=(0, 1, 2), max_iters: int = 4096, return_rounds: bool = False):
     """int64 labels shaped like ``mask``: the component's minimum linear
     index for foreground, N for background. ``axes`` restricts connectivity

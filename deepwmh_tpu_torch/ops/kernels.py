@@ -27,6 +27,8 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from deepwmh_tpu_torch.utils.profiling import span
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -63,7 +65,8 @@ def build(sources) -> dict:
     """Compile every source whose library is missing, one ``nvcc`` per
     source, all started together. Returns {source: library path}; the
     compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside each library as ``.log``. Raises if a build fails."""
+    is kept beside each library as ``.log``; the wait on the compilers is the
+    span ``kernels.build``. Raises if a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     running = []
     for source in sources:
@@ -76,14 +79,15 @@ def build(sources) -> dict:
                                 stderr=subprocess.STDOUT, text=True)
         running.append((source, proc, tmp, out))
     failed = []
-    for source, proc, tmp, out in running:
-        log, _ = proc.communicate()
-        with open(os.path.splitext(out)[0] + ".log", "w") as f:
-            f.write(log)
-        if proc.returncode:
-            failed.append("%s:\n%s" % (source, log))
-        else:
-            os.replace(tmp, out)
+    with span("kernels.build"):
+        for source, proc, tmp, out in running:
+            log, _ = proc.communicate()
+            with open(os.path.splitext(out)[0] + ".log", "w") as f:
+                f.write(log)
+            if proc.returncode:
+                failed.append("%s:\n%s" % (source, log))
+            else:
+                os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed on " + "\n".join(failed))
     return {s: library_path(s) for s in sources}

@@ -26,11 +26,9 @@ block of cases a shard, each block one batch on its shard's device.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import math
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -55,8 +53,9 @@ from deepwmh_tpu_torch.ops.histogram import (
 from deepwmh_tpu_torch.ops.nll import nll, nll_from_moments
 from deepwmh_tpu_torch.ops.stats import SPATIAL, group_mean, z_score
 from deepwmh_tpu_torch.parallel.mesh import Mesh, map_blocks
-from deepwmh_tpu_torch.utils.logging import SimpleTxtLog, TimeStamps
+from deepwmh_tpu_torch.utils.logging import SimpleTxtLog
 from deepwmh_tpu_torch.utils.parallel import run_parallel
+from deepwmh_tpu_torch.utils.profiling import span
 
 PHYSICAL_PATCH_MM = 50.0
 MIN_STD = 0.03
@@ -74,21 +73,6 @@ class AnalysisResult:
     curve_rs: np.ndarray
     threshold: float
     debug: dict = None  # intermediates when analysed with debug=True
-
-
-@contextlib.contextmanager
-def _stage(stage_s, name, device):
-    """Add the device seconds of the block to ``stage_s[name]``, with the
-    device synchronised on both sides; nothing when ``stage_s`` is None."""
-    if stage_s is None:
-        yield
-        return
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda _d: None)
-    sync(device)
-    t0 = time.perf_counter()
-    yield
-    sync(device)
-    stage_s[name] = stage_s.get(name, 0.0) + time.perf_counter() - t0
 
 
 def _fill_background(t, m_rough):
@@ -111,8 +95,6 @@ def nll_analysis_core(
     apply_otsu=True,
     mean_correction=True,
     debug=False,
-    *,
-    stage_s=None,
 ):
     """x_raw [D, H, W]; refs_raw / label1s / label2s [K, D, H, W], all on
     one device and registered to the target; or a batch of B same-geometry
@@ -123,8 +105,8 @@ def nll_analysis_core(
     with a leading B for a batch). With debug=True a dict of intermediates
     is appended: the per-voxel intensity threshold back-solved from the
     anomaly threshold, the rough brain mask, the local mean, the cohort
-    mean and std, and the aligned references with their anomaly maps. With
-    ``stage_s`` a dict, the device seconds of each stage are added to it.
+    mean and std, and the aligned references with their anomaly maps. Each
+    of the seven stages is a span, ``stage1.<stage>`` (``utils/profiling``).
 
     In a batch every statistic is a case's own: the K axis is the fourth
     from the end, minima, moments, bins and thresholds are taken over each
@@ -133,7 +115,7 @@ def nll_analysis_core(
     K = refs_raw.shape[-4]
 
     def stage(name):
-        return _stage(stage_s, name, x_raw.device)
+        return span("stage1." + name)
 
     with stage("mask_zscore_otsu"):
         # rough brain mask: the cohort's label1 majority
@@ -177,9 +159,8 @@ def nll_analysis_core(
         tissue_majority = ((label2s > 0.5).float().sum(-4) > K / 2.0).float()
 
     with stage("median_3mm"):
+        # the cerebellum / brainstem median spliced in, then the vote's mask
         anomaly_cb = median_3mm(anomaly, voxel_size)
-
-    with stage("tissue_vote"):
         anomaly = torch.where(cb_mask, anomaly_cb, anomaly) * tissue_majority
 
     base = (anomaly, m_valid, x, avg_label, curve_x, curve_y, curve_r, curve_rs, threshold)
@@ -252,8 +233,15 @@ def patch_size_from_voxel(voxel_size):
     return tuple(int(math.ceil(PHYSICAL_PATCH_MM / float(v))) for v in voxel_size)
 
 
+@span("stage1.to_host")
 def _numpy(t):
     return t.cpu().numpy()
+
+
+@span("stage1.label_count")
+def _label_count(label2s) -> int:
+    """The label classes of a case's label2 stack (its largest id + 1)."""
+    return int(np.max(label2s.astype(np.int64))) + 1
 
 
 class LesionAnalyzer:
@@ -265,7 +253,6 @@ class LesionAnalyzer:
         self.output_folder = mkdir(output_folder)
         self.data_dict = {}
         self.logger = logger
-        self.time_stamps = TimeStamps()
 
     def log(self, msg):
         if self.logger is not None:
@@ -292,25 +279,26 @@ class LesionAnalyzer:
         return x_raw, hdr, voxel_size, refs, l1, l2
 
     def analyze_case(self, case: str, intensity_prior="+", apply_otsu=True,
-                     loaded=None, debug=False, stage_s=None, device=None):
+                     loaded=None, debug=False, device=None):
         """Returns (AnalysisResult, header, voxel size). ``device``: where
         the case runs (the analyzer's device by default; a mesh shard's)."""
         x_raw, hdr, voxel_size, refs, l1, l2 = loaded or self._load_case(case)
-        num_classes = int(np.max(l2.astype(np.int64))) + 1
+        num_classes = _label_count(l2)
         device = self.device if device is None else device
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
 
+        with span("stage1.to_device"):
+            inputs = [dev(a) for a in (x_raw, refs, l1, l2)]
         out = nll_analysis_core(
-            dev(x_raw), dev(refs), dev(l1), dev(l2),
+            *inputs,
             patch_size=patch_size_from_voxel(voxel_size),
             voxel_size=voxel_size,
             num_label_classes=num_classes,
             side=intensity_prior,
             apply_otsu=apply_otsu,
             debug=debug,
-            stage_s=stage_s,
         )
         dbg = None
         if debug:
@@ -357,8 +345,9 @@ class LesionAnalyzer:
         try:
             from deepwmh_tpu_torch.eval.plots import hist_curve_plot
 
-            hist_curve_plot(result.curve_x, result.curve_y, result.curve_r, result.curve_rs,
-                            join_path(case_dir, "histogram_curves.png"))
+            with span("stage1.plot"):
+                hist_curve_plot(result.curve_x, result.curve_y, result.curve_r,
+                                result.curve_rs, join_path(case_dir, "histogram_curves.png"))
         except Exception as e:  # the plot must never fail the analysis
             self.log("histogram plot failed for %s: %s" % (case, e))
         # summary.json marks the case complete, so it is written last
@@ -405,7 +394,7 @@ class LesionAnalyzer:
         shard). Returns [(AnalysisResult, header)] in chunk order."""
         groups = {}
         for i, ld in enumerate(loaded):
-            groups.setdefault(int(np.max(ld[5].astype(np.int64))) + 1, []).append(i)
+            groups.setdefault(_label_count(ld[5]), []).append(i)
         results = [None] * len(chunk)
         for num_classes, idxs in groups.items():
             if len(idxs) == 1:
@@ -449,7 +438,6 @@ class LesionAnalyzer:
         if not (batch_cases == "auto" or isinstance(batch_cases, int)):
             raise ValueError("batch_cases must be 'auto' or an int, got %r" % (batch_cases,))
 
-        self.time_stamps.record("segmentation_start")
         todo = []
         for case in self.data_dict:
             case_dir = mkdir(join_path(self.output_folder, case))
@@ -460,13 +448,15 @@ class LesionAnalyzer:
 
         chunks = self._chunks(todo, batch_cases, debug, mesh)
 
-        def load_chunk(cases):
-            return [self._load_case(c) for c in cases]
+        def load_chunk(cases):  # on the reader thread
+            with span("stage1.read"):
+                return [self._load_case(c) for c in cases]
 
         with ThreadPoolExecutor(max_workers=1) as pool:
             future = pool.submit(load_chunk, chunks[0]) if chunks else None
             for i, chunk in enumerate(chunks):
-                loaded = future.result()
+                with span("stage1.read_wait"):
+                    loaded = future.result()
                 if i + 1 < len(chunks):  # read the next chunk while this one runs
                     future = pool.submit(load_chunk, chunks[i + 1])
                 results = self._analyze_chunk_batched(chunk, loaded, intensity_prior, debug,
@@ -495,8 +485,9 @@ class LesionAnalyzer:
             if do_postprocessing and not nifti.try_load_nifti(pp_path):
                 seg = nifti.load_nifti_simple(seg_path)
                 seg_t = torch.from_numpy(np.ascontiguousarray(seg)).to(self.device)
-                seg_pp = _numpy(remove_3mm_sparks(seg_t, nifti.get_nifti_pixdim(pre_path)))
+                with span("stage1.sparks"):
+                    seg_pp = remove_3mm_sparks(seg_t, nifti.get_nifti_pixdim(pre_path))
+                seg_pp = _numpy(seg_pp)
                 nifti.save_nifti(seg_pp, nifti.get_nifti_header(pre_path), pp_path)
 
-        self.time_stamps.record("segmentation_end")
         self.log("stage-1 analysis finished for %d case(s)" % len(self.data_dict))

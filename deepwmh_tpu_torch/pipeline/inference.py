@@ -11,7 +11,8 @@ cards (``ops/n4.n4_would_shard``: >= 64M voxels, several cards, the run not
 pinned) takes the staged path instead, with the sharded N4 first, as the
 JAX package's ``_can_fuse`` gate routes it. A partially computed case runs
 stage by stage, probing each artifact with ``try_load_nifti``, so a rerun
-resumes where it stopped.
+resumes where it stopped. Both paths mark their stages with the same
+``predict.*`` spans (``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from deepwmh_tpu_torch.core.artifacts import join_path, mkdir
 from deepwmh_tpu_torch.ops.brain import brain_extract
 from deepwmh_tpu_torch.ops.components import remove_3mm_sparks
 from deepwmh_tpu_torch.ops.n4 import n4_bias_correction_auto, n4_would_shard
+from deepwmh_tpu_torch.utils.profiling import span
 
 
 def make_output_folders(output_folder):
@@ -39,10 +41,12 @@ def make_output_folders(output_folder):
     }
 
 
+@span("predict.to_host")
 def _numpy(t):
     return t.cpu().numpy()
 
 
+@span("predict.preview")
 def _render_preview(folders, case, raw_data, fov_data, image_path=None, seg_path=None):
     """Best-effort GIF preview: a rendering error (or a host without PIL)
     never fails a case whose segmentation artifacts are on disk.
@@ -176,8 +180,9 @@ def predict_one_case(predictor, case, image_path, folders, skip_bfc: bool = Fals
             if skip_bfc:
                 nifti.save_nifti(raw_data, hdr, pre_path)
             else:
-                corrected = n4_bias_correction_auto(
-                    torch.from_numpy(np.array(raw_data)).to(dev), pinned=predictor.pinned)
+                with span("predict.n4"):
+                    corrected = n4_bias_correction_auto(
+                        torch.from_numpy(np.array(raw_data)).to(dev), pinned=predictor.pinned)
                 nifti.save_nifti(_numpy(corrected), hdr, pre_path)
 
         if not nifti.try_load_nifti(raw_seg):
@@ -188,13 +193,16 @@ def predict_one_case(predictor, case, image_path, folders, skip_bfc: bool = Fals
         if not nifti.try_load_nifti(seg_3mm):
             seg, hdr = nifti.load_nifti(raw_seg)
             spacing = nifti.get_nifti_pixdim(raw_seg)
-            seg_pp = remove_3mm_sparks(torch.from_numpy(np.array(seg)).to(dev), spacing)
+            with span("predict.sparks"):
+                seg_pp = remove_3mm_sparks(torch.from_numpy(np.array(seg)).to(dev), spacing)
             nifti.save_nifti(_numpy(seg_pp), hdr, seg_3mm)
 
         if not nifti.try_load_nifti(seg_fov):
             flair, hdr = nifti.load_nifti(pre_path)
             spacing = tuple(nifti.get_nifti_pixdim(pre_path))
-            mask = _numpy(brain_extract(torch.from_numpy(np.array(flair)).to(dev), spacing))
+            with span("predict.brain_mask"):
+                mask = brain_extract(torch.from_numpy(np.array(flair)).to(dev), spacing)
+            mask = _numpy(mask)
             seg = nifti.load_nifti_simple(seg_3mm)
             nifti.save_nifti(((seg * mask) > 0.5).astype(np.float32), hdr, seg_fov)
 

@@ -58,17 +58,20 @@ from deepwmh_tpu_torch.unet.preprocess import normalize_zscore, resample_volume
 from deepwmh_tpu_torch.unet.release import release_model
 from deepwmh_tpu_torch.unet.train import TrainConfig, Trainer
 from deepwmh_tpu_torch.utils.logging import SimpleTxtLog
+from deepwmh_tpu_torch.utils.profiling import span
 
 @contextlib.contextmanager
 def timed_stage(stats: dict, name: str, device, log=print):
     """Record in ``stats[name]`` the seconds (and, on a card, the peak
-    device memory) of a phase that runs."""
+    device memory) of a phase that runs, the device synchronised on both
+    sides; the phase is also the span ``run_train.<name>``."""
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    yield
+    with span("run_train." + name):
+        yield
     if cuda:
         torch.cuda.synchronize(device)
     rec = {"s": time.perf_counter() - t0}

@@ -27,6 +27,7 @@ from deepwmh_tpu_torch.unet.preprocess import (
     preprocess_case,
     resample_to_shape,
 )
+from deepwmh_tpu_torch.utils.profiling import span
 
 POS_BUCKET = 8
 ALL_FLIPS = tuple(itertools.product((False, True), repeat=3))
@@ -254,12 +255,15 @@ class SlidingWindowPredictor:
         resample each fg back and threshold. ``spacing`` is already rounded
         to 4 decimals; the resampled shape is round(shape * spacing /
         target_spacing) per axis (Python round). Returns [(seg, fg)]."""
-        pre = torch.stack([preprocess_case(v, spacing, self.plan) for v in vols])
-        fg = self._sweep(pre)[..., 1]
+        with span("predict.preprocess"):
+            pre = torch.stack([preprocess_case(v, spacing, self.plan) for v in vols])
+        with span("predict.sweep"):
+            fg = self._sweep(pre)[..., 1]
         out = []
-        for vol, f in zip(vols, fg):
-            fg_orig = resample_to_shape(f, tuple(vol.shape), order=1)
-            out.append(((fg_orig > 0.5).to(torch.uint8), fg_orig))
+        with span("predict.resample_back"):
+            for vol, f in zip(vols, fg):
+                fg_orig = resample_to_shape(f, tuple(vol.shape), order=1)
+                out.append(((fg_orig > 0.5).to(torch.uint8), fg_orig))
         return out
 
     @torch.inference_mode()
@@ -269,19 +273,25 @@ class SlidingWindowPredictor:
         spacing_r = tuple(round(float(s), 4) for s in spacing)
         vol = self._tensor(data)
         if apply_n4:
-            vol = n4_bias_correction(vol)
+            with span("predict.n4"):
+                vol = n4_bias_correction(vol)
         return self._cases([vol], spacing_r)[0]
 
     def _full(self, raws, spacing, apply_n4):
         """(pre, seg_raw, seg_3mm, seg_fov, fg) of each raw volume; the
         U-Net sweep runs over all of them at once."""
         spacing_r = tuple(round(float(s), 4) for s in spacing)
-        pres = [n4_bias_correction(raw) if apply_n4 else raw for raw in raws]
+        pres = list(raws)
+        if apply_n4:
+            with span("predict.n4"):
+                pres = [n4_bias_correction(raw) for raw in raws]
         out = []
         for pre, (seg, fg) in zip(pres, self._cases(pres, spacing_r)):
-            seg_3mm = remove_3mm_sparks(seg, spacing_r)
-            mask = brain_extract(pre, spacing_r)
-            seg_fov = ((seg_3mm * mask) > 0.5).float()
+            with span("predict.sparks"):
+                seg_3mm = remove_3mm_sparks(seg, spacing_r)
+            with span("predict.brain_mask"):
+                mask = brain_extract(pre, spacing_r)
+                seg_fov = ((seg_3mm * mask) > 0.5).float()
             out.append((pre, seg, seg_3mm, seg_fov, fg))
         return out
 

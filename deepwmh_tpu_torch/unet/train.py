@@ -36,6 +36,10 @@ every sample's values from the one generator in sample order and applies
 sample i on its shard: the augmented batch is the unsharded one. A batch
 that the mesh size does not divide shards over the first gcd(B, n) shards
 (unsharded at a gcd of 1), with the JAX trainer's log line.
+
+A step's augmentation, forward and backward, and update, the prefetch's
+sampling and the loop's wait on it, the checkpoints and validation are
+spans ``train.*`` (``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -78,6 +82,7 @@ from deepwmh_tpu_torch.unet.losses import (
 from deepwmh_tpu_torch.unet.model import UNet3D, init_weights
 from deepwmh_tpu_torch.unet.plan import Plan
 from deepwmh_tpu_torch.utils.logging import SimpleTxtLog, Timer
+from deepwmh_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -267,18 +272,24 @@ class Trainer:
         (detached, not synchronised). ``gen`` drives the augmentation
         (required when it is on)."""
         if self.cfg.augment:
-            images, labels = self.augment(images, labels, gen)
+            with span("train.augment"):
+                images, labels = self.augment(images, labels, gen)
         if self.mesh is not None:
-            loss, grads = self.mesh_loss_grads(images, labels)
-            self.update(grads, lr)
-            self._sync_replicas()
+            with span("train.forward_backward"):
+                loss, grads = self.mesh_loss_grads(images, labels)
+            with span("train.update"):
+                self.update(grads, lr)
+                self._sync_replicas()
             return loss
-        loss = self.loss(images, labels)
-        # the lowest-resolution head has deep-supervision weight 0: a zero
-        # gradient, which still takes weight decay and momentum
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
-        self.update(grads, lr)
+        with span("train.forward_backward"):
+            loss = self.loss(images, labels)
+            # the lowest-resolution head has deep-supervision weight 0: a
+            # zero gradient, which still takes weight decay and momentum
+            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        with span("train.update"):
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(self.params, grads)]
+            self.update(grads, lr)
         return loss.detach()
 
     @torch.no_grad()
@@ -334,9 +345,10 @@ class Trainer:
 
         # the next batch is sampled and copied while the step runs; one
         # worker keeps np_rng's draws in the unprefetched order
-        def next_batch():
-            return self._to_device(*train_ds.sample_batch(np_rng, cfg.batch_size,
-                                                          cfg.oversample_fg))
+        def next_batch():  # on the prefetch thread
+            with span("train.sample"):
+                return self._to_device(*train_ds.sample_batch(np_rng, cfg.batch_size,
+                                                              cfg.oversample_fg))
 
         with ThreadPoolExecutor(max_workers=1) as prefetcher:
             for epoch in range(start_epoch, cfg.epochs):
@@ -345,7 +357,8 @@ class Trainer:
                 # the epoch's last batch is taken before validation draws from np_rng
                 pending = prefetcher.submit(next_batch)
                 for b in range(cfg.batches_per_epoch):
-                    images, labels = pending.result()
+                    with span("train.data_wait"):
+                        images, labels = pending.result()
                     if b + 1 < cfg.batches_per_epoch:
                         pending = prefetcher.submit(next_batch)
                     lr = self.lr_at(epoch * cfg.batches_per_epoch + b)
@@ -356,29 +369,34 @@ class Trainer:
                 if noval_mode:
                     metric = float(epoch + 1)  # monotonic: best == latest
                 else:
-                    dices = [self.eval_step(*self._to_device(
-                        *val_ds.sample_batch(np_rng, cfg.batch_size, 0.5)))
-                        for _ in range(cfg.val_batches)]
-                    metric = float(torch.stack(dices).mean())
+                    with span("train.validate"):
+                        dices = [self.eval_step(*self._to_device(
+                            *val_ds.sample_batch(np_rng, cfg.batch_size, 0.5)))
+                            for _ in range(cfg.val_batches)]
+                        metric = float(torch.stack(dices).mean())
 
                 meta = {"epoch": epoch + 1, "best_metric": max(best_metric, metric),
                         "train_loss": mean_loss, "val_metric": None if noval_mode else metric}
-                params, opt_state = self.state_trees()
-                # across processes rank 0 writes the shared checkpoints
-                if writer:
-                    ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_LATEST, params, opt_state,
-                                         meta)
-                    if cfg.save_every_epoch:
-                        ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_EPOCH_FMT % (epoch + 1),
-                                             params, meta=meta)
-                if noval_mode:
-                    best_metric = metric
+                with span("train.checkpoint"):
+                    params, opt_state = self.state_trees()
+                    # across processes rank 0 writes the shared checkpoints
                     if writer:
-                        ckpt.link_checkpoint(self.out_dir, ckpt.MODEL_LATEST, ckpt.MODEL_BEST)
-                elif metric > best_metric:
-                    best_metric = metric
-                    if writer:
-                        ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_BEST, params, meta=meta)
+                        ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_LATEST, params,
+                                             opt_state, meta)
+                        if cfg.save_every_epoch:
+                            ckpt.save_checkpoint(self.out_dir,
+                                                 ckpt.MODEL_EPOCH_FMT % (epoch + 1),
+                                                 params, meta=meta)
+                    if noval_mode:
+                        best_metric = metric
+                        if writer:
+                            ckpt.link_checkpoint(self.out_dir, ckpt.MODEL_LATEST,
+                                                 ckpt.MODEL_BEST)
+                    elif metric > best_metric:
+                        best_metric = metric
+                        if writer:
+                            ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_BEST, params,
+                                                 meta=meta)
                 self.history.append({"epoch": epoch + 1, "losses": losses,
                                      "train_loss": mean_loss, "metric": metric})
                 self.log("epoch %d/%d loss=%.4f metric=%.4f best=%.4f (%.1fs)"
@@ -386,8 +404,9 @@ class Trainer:
                             timer.elapsed()))
 
         if writer and (noval_mode or not ckpt.checkpoint_exists(self.out_dir, ckpt.MODEL_BEST)):
-            ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_BEST, self.state_trees()[0],
-                                 meta={"epoch": cfg.epochs, "best_metric": best_metric})
+            with span("train.checkpoint"):
+                ckpt.save_checkpoint(self.out_dir, ckpt.MODEL_BEST, self.state_trees()[0],
+                                     meta={"epoch": cfg.epochs, "best_metric": best_metric})
         if self.mesh is not None:
             barrier(self.mesh)
         return self.model, best_metric

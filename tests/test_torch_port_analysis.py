@@ -572,15 +572,20 @@ def test_stage1_one_mm_f32_witness(tmp_path):
 
 
 def test_nll_analysis_core_stage_times():
+    """Under a profiler the core's seven stages are spans, each once, and
+    the outputs are the bits of a run without one."""
+    from torch.profiler import ProfilerActivity, profile
+
     cohort = chip_smoke.synthetic_cohort((24, 28, 20), 3, seed=1)
     x, refs, l1, l2, _ = map(_t, cohort)
-    stage_s = {}
     plain = analysis.nll_analysis_core(x, refs, l1, l2, (25, 25, 25), SLICE_SPACING, 4)
-    timed = analysis.nll_analysis_core(x, refs, l1, l2, (25, 25, 25), SLICE_SPACING, 4,
-                                       stage_s=stage_s)
-    assert set(stage_s) == {"mask_zscore_otsu", "local_mean_alignment", "nll",
-                            "component_filtering", "histogram_threshold", "tissue_vote",
-                            "median_3mm"}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        timed = analysis.nll_analysis_core(x, refs, l1, l2, (25, 25, 25), SLICE_SPACING, 4)
+    names = [ev.name() for ev in prof.profiler.kineto_results.events()
+             if ev.name().startswith("deepwmh.stage1.")]
+    assert sorted(names) == sorted("deepwmh.stage1." + s for s in (
+        "mask_zscore_otsu", "local_mean_alignment", "nll", "component_filtering",
+        "histogram_threshold", "tissue_vote", "median_3mm"))
     for a, b in zip(plain, timed):
         assert torch.equal(a, b)
 
