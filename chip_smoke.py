@@ -16,7 +16,11 @@ Phases, each printing JSON lines to stdout:
    the plain chain, with both times and its memory bound; then both kernels
    at one narrow width per dtype (fault B0: [1, M, 4] bf16, [1, M, 2] f32
    at the flagship M) checked the same way and timed beside the wide width
-   of the same M, and the 8-flip flagship sweep with K1 on against the
+   of the same M, K1's backward at every [2, M, C] of the flagship train
+   step (its two kernels against their plain versions, the same bits twice;
+   back-to-back and device ms beside the 6-byte bound, the design's 10
+   bytes and the plain chain's autograd backward), and the 8-flip
+   flagship sweep with K1 on against the
    plain norm chain (``experiments/studies/fused_stats_study.measure``);
 3. main_path: ``DeepWMH_predict`` through ``run_predict`` at the flagship plan
    (192x224x192 1 mm FLAIR, 8-flip whole-volume TTA, random weights from a
@@ -48,11 +52,13 @@ Phases, each printing JSON lines to stdout:
    augmentation on) on three synthetic preprocessed cases with planted
    lesions, two epochs of six steps with a one-case validation set: finite
    losses, the four checkpoints read back, a second fit that resumes at the
-   end, ``release_model`` served by the port's predictor on the card, no
-   K1 launch; then seconds per step, peak memory with and without remat and
-   one step's device time by section and kernel group;
+   end, ``release_model`` served by the port's predictor on the card, K1's
+   launches (forward and backward a block a step, remat's recompute, the
+   validation forwards); then seconds per step, peak memory with and
+   without remat and one step's device time by section and kernel group;
 11. train_card_vs_cpu: one Trainer step from the same weights and batch on
-   the card and on the CPU (small plan, f32, no TF32, no augmentation);
+   the card (K1 forward and backward) and on the CPU (their plain
+   versions; small plan, f32, no TF32, no augmentation);
 12. k1_learned (run right after k1): K1's two kernels at every [1, M, C]
    of the learned registration network on the 2 mm template grid of the
    flagship cohort (96x112x96; C = 8, 16, 32, 32), checked as in k1;
@@ -141,7 +147,8 @@ Phases, each printing JSON lines to stdout:
    learned registration, on the train path, on the converted model's
    predict CLI run, on the predict CLI run on the converted DICOM series,
    on the 8-shard mesh's predict_case_full and on run_train over the
-   2-shard mesh; K2 on the stage-1 path, the train path, the halo-sharded
+   2-shard mesh; K1's backward over phase train's six steps and on the
+   train path; K2 on the stage-1 path, the train path, the halo-sharded
    median and run_train over the mesh), after a line of the policy's
    readings at the flagship shape;
 24. mesh (run right after serve): the device mesh's inference side on an
@@ -196,7 +203,8 @@ Dice (fault C1's rule: svf at or above learned at 168 pairs).
 ``python3 chip_smoke.py --convert-evaluate`` builds the kernels and runs
 only the convert_evaluate and surface phases; ``python3 chip_smoke.py --dicom`` builds
 them and runs only dicom_predict and oasis3_prep; ``python3 chip_smoke.py
---mesh`` builds them and runs only mesh and mesh_train.
+--mesh`` builds them and runs only mesh and mesh_train; ``python3
+chip_smoke.py --k1`` builds them and runs only k1 and train.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``. A failed phase
 raises, and the script exits non-zero before printing it; so it does with no
@@ -545,9 +553,10 @@ def phase_k1(kernels, plan, vol_shape=FLAGSHIP_SHAPE, phase="k1", what="flagship
         calls_per_forward += calls
         del x, x3, mean, var, ref_mean, ref_var, out, want
     check(calls_per_forward == 4 * plan.num_pools + 2, "K1 shape table is off")
-    narrow = None
+    narrow = backward = None
     if phase == "k1":
         narrow = k1_narrow(kernels, int(np.prod(vol_shape)), phase)
+        backward = k1_backward(kernels, plan)
         k1_sweep(plan, vol_shape)
     per = "one %s forward (%d calls)" % (what, calls_per_forward)
     stats_entry = {
@@ -585,7 +594,100 @@ def phase_k1(kernels, plan, vol_shape=FLAGSHIP_SHAPE, phase="k1", what="flagship
                                 "ms": r["act_ms"], "plain_ms": r["act_plain_ms"],
                                 "bound_ms": r["act_bound_ms"], "wide_ms": r["wide_act_ms"]}
                                for r in narrow]
-    return stats_entry, act_entry
+    return stats_entry, act_entry, backward
+
+
+def k1_backward(kernels, plan):
+    """K1's backward (``kernels.instance_norm_act_backward``: the sums
+    kernel with the [N, C] terms, the dx kernel) at every [2, M, C] of
+    ``plan``'s train step (its patch, batch 2, bf16): the terms the same
+    bits twice and within 1e-5 of the plain version's, relative to the same
+    terms over |g| and |g * (x - mean)|, dx from the kernel's terms bit for
+    bit the plain dx pass; then its back-to-back and
+    device ms, each kernel's back-to-back ms, the plain chain's autograd
+    backward (``ConvNormAct._plain``) and the bounds: 6 bytes an element
+    (dy and x read, dx written: any backward) and the design's 10. Returns
+    the kernels-line entry: times summed over the step's blocks."""
+    import torch
+
+    from deepwmh_tpu_torch.unet.model import NORM_EPS, ConvNormAct
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    slope = float(torch.tensor(0.01, dtype=torch.bfloat16))
+    keys = ("ms", "device_ms", "stats_ms", "dx_ms", "plain_ms", "bound_ms", "design_bytes_ms")
+    total = {k: 0.0 for k in keys}
+    blocks = 0
+    for spatial, c, calls in stats_shapes(plan, tuple(plan.patch_size)):
+        shape = (2,) + spatial + (c,)
+        x = (torch.randn(shape, generator=gen, device=DEVICE) * 2 + 0.5).to(torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+        weight = torch.rand(c, generator=gen, device=DEVICE) + 0.5
+        bias = torch.randn(c, generator=gen, device=DEVICE) - 0.3
+        mean, var = kernels.instance_norm_stats(x)
+        mul = torch.rsqrt(var.clamp_min(0.0) + NORM_EPS) * weight
+        terms = kernels.instance_norm_act_bwd_stats(x, dy, mean, mul, bias, var, slope,
+                                                    NORM_EPS)
+        again = kernels.instance_norm_act_bwd_stats(x, dy, mean, mul, bias, var, slope,
+                                                    NORM_EPS)
+        ref = kernels.instance_norm_act_bwd_stats_reference(x, dy, mean, mul, bias, var, slope,
+                                                            NORM_EPS)
+        g, xc = kernels._backward_g(x, dy, mean, mul, bias, slope)
+        m = int(np.prod(spatial))
+        rstd = torch.rsqrt(var.clamp_min(0.0) + NORM_EPS)
+        # each term over |g| and |g * (x - mean)|: the size of its sum
+        abs_g, abs_gx = g.abs().sum((1, 2, 3)), (g * xc).abs().sum((1, 2, 3)) * rstd
+        sizes = (abs_g / m, abs_gx * rstd / m, abs_gx.sum(0), abs_g.sum(0))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(terms, again)),
+              "K1's backward terms gave other bits on a second call at %s" % (shape,))
+        terms_err = max(float(((a - b).abs() / sz).max()) for a, b, sz in zip(terms, ref, sizes))
+        check(terms_err <= 1e-5, "K1's backward terms at %s: %r" % (shape, terms_err))
+        del g, xc, ref, again
+        k1, k2 = terms[0], terms[1]
+        dx = kernels.instance_norm_act_bwd_dx(x, dy, mean, mul, bias, k1, k2, slope)
+        want = kernels.instance_norm_act_bwd_dx_reference(x, dy, mean, mul, bias, k1, k2, slope)
+        torch.cuda.synchronize()
+        check(torch.equal(dx, want), "K1's backward dx differs from its plain version at %s"
+              % (shape,))
+        del dx, want
+
+        def fused():
+            return kernels.instance_norm_act_backward(x, dy, mean, var, mul, bias, slope,
+                                                      NORM_EPS)
+
+        blk = ConvNormAct(c, c, (3, 3, 3)).to(DEVICE)
+        with torch.no_grad():
+            blk.norm_weight.copy_(weight)
+            blk.norm_bias.copy_(bias)
+        y = x.permute(0, 4, 1, 2, 3).detach().requires_grad_(True)  # channels-last NCDHW
+        out = blk._plain(y)
+        dout = dy.permute(0, 4, 1, 2, 3)
+        params = [y, blk.norm_weight, blk.norm_bias]
+        row = {
+            "ms": cuda_ms(fused), "device_ms": device_ms(fused),
+            "stats_ms": cuda_ms(lambda: kernels.instance_norm_act_bwd_stats(
+                x, dy, mean, mul, bias, var, slope, NORM_EPS)),
+            "dx_ms": cuda_ms(lambda: kernels.instance_norm_act_bwd_dx(
+                x, dy, mean, mul, bias, k1, k2, slope)),
+            "plain_ms": cuda_ms(lambda: torch.autograd.grad(out, params, dout,
+                                                            retain_graph=True)),
+            "bound_ms": 6 * x.numel() / HBM_BYTES_PER_S * 1e3,
+            "design_bytes_ms": 10 * x.numel() / HBM_BYTES_PER_S * 1e3,
+        }
+        emit({"phase": "k1_backward", "shape_nmc": [2, m, c], "calls_per_step": calls,
+              "terms_max_rel_err": terms_err, **row})
+        for key in total:
+            total[key] = None if total[key] is None or row[key] is None else (
+                total[key] + calls * row[key])
+        blocks += calls
+        del x, dy, out, y, dout, params, blk, terms, k1, k2
+    check(blocks == 4 * plan.num_pools + 2, "K1 backward shape table is off")
+    return {"name": "instance_norm_act_backward", "route": "cuda",
+            "source": "deepwmh_tpu_torch/csrc/instance_norm_act_backward.cu",
+            "replaces": None,  # no TPU counterpart: the JAX trainer differentiates flax
+            **total, "bound_by": "bytes",
+            "per": "one train step's %d blocks at patch %s, batch 2" % (
+                blocks, "x".join(map(str, plan.patch_size)))}
 
 
 def k1_sweep(plan, vol_shape):
@@ -1676,7 +1778,7 @@ def phase_mesh(kernels, work, smi, pkg, flair, stage1=None):
                   % (case, key))
     out.update(stage1={"s": s1_s, "cases": 2, "launches": s1_launches, "equal_to_one_by_one": True})
     check(set(launches) == set(med_launches) == set(s1_launches)
-          == {"instance_norm_stats", "instance_norm_act", "median3"},
+          == set(kernels.KERNELS),
           "unlisted kernels on the mesh paths: %s" % sorted(launches))
     emit(out)
     return mesh_launches
@@ -1736,6 +1838,19 @@ def _profiled(fn, by_name=None):
     return out, groups, wall
 
 
+def trainer_launches(plan, steps, val_batches=0) -> dict:
+    """Each kernel's launches over ``steps`` Trainer steps (remat on stages
+    0-1) and ``val_batches`` validation forwards at ``plan``: K1's two
+    forward kernels once a block a forward and again for each block remat
+    recomputes, K1's two backward kernels once a block a step, no K2."""
+    blocks = 4 * plan.num_pools + 2
+    remat = sum(2 if i == plan.num_pools else 4 for i in range(min(1, plan.num_pools) + 1))
+    forwards = steps * (blocks + remat) + val_batches * blocks
+    return {"instance_norm_stats": forwards, "instance_norm_act": forwards,
+            "instance_norm_act_bwd_stats": steps * blocks,
+            "instance_norm_act_bwd_dx": steps * blocks, "median3": 0}
+
+
 def _train_cohort(shape, seed):
     """A preprocessed training case: synthetic_cohort's target (planted
     lesions) z-scored over the volume, and its lesion mask as the label."""
@@ -1779,8 +1894,11 @@ def phase_train(kernels, work, smi):
     fit_s = time.perf_counter() - t0
     fit_launches = {name: k.launches for name, k in kernels.KERNELS.items()}
     fit_peak = torch.cuda.max_memory_allocated() / 1e9
-    check(all(v == 0 for v in fit_launches.values()),
-          "the training path launched a kernel: %r" % fit_launches)
+    # K1 forward and backward a block a step, remat's recompute, and K1
+    # forward a block on each validation batch
+    steps = cfg.epochs * cfg.batches_per_epoch
+    check(fit_launches == trainer_launches(plan, steps, cfg.epochs * cfg.val_batches),
+          "the training path's launches: %r" % fit_launches)
     losses = [v for h in trainer.history for v in h["losses"]]
     check(len(losses) == 12 and all(math.isfinite(v) for v in losses),
           "train losses: %r" % losses)
@@ -1830,8 +1948,9 @@ def phase_train(kernels, work, smi):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         check(math.isfinite(float(loss)), "a timed step's loss is %r" % float(loss))
-    check(all(k.launches == 0 for k in kernels.KERNELS.values()),
-          "the train step launched a kernel")
+    step_launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    check(step_launches == trainer_launches(plan, len(step_s)),
+          "the timed train steps' launches: %r" % step_launches)
     peak = {}
     for remat in (True, False):
         trainer.model.remat = remat
@@ -1868,6 +1987,7 @@ def phase_train(kernels, work, smi):
     recompute = cfg.batch_size * remat_flops(plan, tuple(plan.patch_size))
     med = float(np.median(step_s[1:]))
     emit({"phase": "train", "nvidia_smi": smi, "plan": "default_plan_1mm_iso",
+          "step_launches": step_launches,
           "patch": list(plan.patch_size), "batch": cfg.batch_size, "cases": len(train_ds),
           "epochs": cfg.epochs, "batches_per_epoch": cfg.batches_per_epoch,
           "setup_s": setup_s, "fit_s": fit_s, "fit_peak_device_gb": fit_peak,
@@ -1883,6 +2003,7 @@ def phase_train(kernels, work, smi):
           "step_top_kernels_ms": [[n[:90], ms] for n, ms in
                                   sorted(by_name.items(), key=lambda kv: -kv[1])[:12]],
           "warp_pair_ms": warp_ms})
+    return step_launches
 
 
 def phase_train_card_vs_cpu(kernels, work):
@@ -1910,13 +2031,15 @@ def phase_train_card_vs_cpu(kernels, work):
                 start = tr.state_trees()
             else:
                 tr.load_state_trees(*start)
-            before = sum(k.launches for k in kernels.KERNELS.values())
+            before = {name: k.launches for name, k in kernels.KERNELS.items()}
             loss = tr.train_step(*tr._to_device(images, labels), tr.lr_at(0))
             result[dev] = float(loss)
             if dev == DEVICE:
                 torch.cuda.synchronize()
-                check(sum(k.launches for k in kernels.KERNELS.values()) == before,
-                      "the card's train step launched a kernel")
+                launched = {name: k.launches - before[name]
+                            for name, k in kernels.KERNELS.items()}
+                check(launched == trainer_launches(plan, 1),
+                      "the card's train step launched %r" % launched)
             trainers[dev] = tr
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
@@ -4298,6 +4421,9 @@ def main(argv=None) -> int:
     parser.add_argument("--mesh", action="store_true",
                         help="Instead of every phase, only mesh and mesh_train (after the "
                         "build).")
+    parser.add_argument("--k1", action="store_true",
+                        help="Instead of every phase, only k1 (K1 and its backward) and "
+                        "train (after the build).")
     parser.add_argument("--crossover", choices=("svf", "learned"),
                         help="Instead of the phases, the 12 x 14 = 168-pair crossover study "
                         "with this registration mode forced (about 33 min for svf).")
@@ -4378,7 +4504,20 @@ def main(argv=None) -> int:
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
-    k1_entry, act_entry = run(phase_k1, kernels, default_plan_1mm_iso())
+    if args.k1:
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=HERE) as work:
+            k1_entry, act_entry, bwd_entry = run(phase_k1, kernels, default_plan_1mm_iso())
+            step_launches = run(phase_train, kernels, work, smi)
+        bwd_entry.update(launches={n: step_launches[n] for n in step_launches
+                                   if n.startswith("instance_norm_act_bwd")},
+                         launches_per="six flagship train steps")
+        emit({"phase": "done", "total_s": time.perf_counter() - t_start, "phase_s": phase_s,
+              "nvidia_smi": smi})
+        emit({"kernels": [k1_entry, act_entry, bwd_entry]})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    k1_entry, act_entry, bwd_entry = run(phase_k1, kernels, default_plan_1mm_iso())
     k1_learned = run(phase_k1_learned, kernels)
     k2_entry = run(phase_k2, kernels)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=HERE) as work:
@@ -4387,7 +4526,7 @@ def main(argv=None) -> int:
         stage1_launches, stage1, stage1_batch_launches = run(phase_stage1, kernels, work, smi)
         run(phase_serve, kernels, work, pkg, smi)
         mesh_launches = run(phase_mesh, kernels, work, smi, pkg, flair, stage1)
-        run(phase_train, kernels, work, smi)
+        step_launches = run(phase_train, kernels, work, smi)
         run(phase_train_card_vs_cpu, kernels, work)
         src_csv, tgt_csv, cases, reg_out, reg = run(phase_group_register, kernels, work, smi)
         run(phase_warm, work, smi, src_csv, tgt_csv, cases, reg_out)
@@ -4401,8 +4540,8 @@ def main(argv=None) -> int:
         dicom_launches, _, src_nii, dicom_out = run(phase_dicom_predict, kernels, work, smi, pkg)
         run(phase_oasis3_prep, work, smi, src_nii, os.path.join(dicom_out, DICOM_FOV), cases)
     t0 = time.perf_counter()
-    k1_train, act_train = phase_k1(kernels, train_plan, E2E_SHAPE, "k1_train",
-                                   "%dx%dx%d train-path" % E2E_SHAPE)
+    k1_train, act_train, _ = phase_k1(kernels, train_plan, E2E_SHAPE, "k1_train",
+                                      "%dx%dx%d train-path" % E2E_SHAPE)
     phase_s["k1_train"] = time.perf_counter() - t0
     run(phase_postproc_exact, flair)
     run(phase_stage1_card_vs_cpu, kernels)
@@ -4447,7 +4586,7 @@ def main(argv=None) -> int:
     check(set(launches) == set(stage1_launches) == set(stage1_batch_launches)
           == set(learned_launches) == set(train_launches)
           == set(convert_launches) == set(dicom_launches) == set(mesh_launches)
-          == set(mesh_train_launches) == {"instance_norm_stats", "instance_norm_act", "median3"},
+          == set(mesh_train_launches) == set(kernels.KERNELS),
           "unlisted kernels: %s" % sorted(launches))
     # the policy's readings at the flagship shape (registration/policy.py
     # holds those of --e2e-dice at 64x80x64)
@@ -4459,7 +4598,13 @@ def main(argv=None) -> int:
           "scaled_from_steps": LEARNED_STEPS})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start, "phase_s": phase_s,
           "nvidia_smi": smi})
-    emit({"kernels": [k1_entry, act_entry, k2_entry]})
+    # K1's backward: its two kernels' launches over phase train's six
+    # flagship steps and on the train path
+    bwd = ("instance_norm_act_bwd_stats", "instance_norm_act_bwd_dx")
+    bwd_entry.update(launches={n: step_launches[n] for n in bwd},
+                     launches_per="six flagship train steps",
+                     train_launches={n: train_launches[n] for n in bwd})
+    emit({"kernels": [k1_entry, act_entry, bwd_entry, k2_entry]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -30,82 +30,22 @@
 // loads in flight, storing 16 bytes per row.
 //
 // Narrow widths (C < V, V % C == 0) walk a sample's flat [M * C] run as
-// 16-byte vectors, lane j holding channel (head + j) % C (head: the elements
-// before the sample's first 16-byte boundary), as the statistics kernel
-// does; the head and the elements after the last whole vector (at most
-// V - 1 each) go one by one through the same rounded steps, on thread 0 of
-// block 0.
+// 16-byte vectors, lane j holding channel (head + j) % C (channels_last.h's
+// walk), as the statistics kernel does; the head and the elements after the
+// last whole vector (at most V - 1 each) go one by one through the same
+// rounded steps, on thread 0 of block 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "channels_last.h"
 
 namespace {
 
 constexpr int kUnroll = 4;
 
+// the cast to T, then the leaky ReLU on the rounded value, rounded again
 template <typename T>
-struct Io16;
-
-template <>
-struct Io16<__nv_bfloat16> {
-  static constexpr int kWidth = 8;
-  __device__ static void unpack(const uint4& raw, float (&v)[8]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  // round to bf16, then the leaky ReLU on the rounded value, rounded again
-  __device__ static uint4 act_pack(const float (&v)[8], float slope) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float a = __bfloat162float(__float2bfloat16_rn(v[2 * i]));
-      float b = __bfloat162float(__float2bfloat16_rn(v[2 * i + 1]));
-      a = a > 0.f ? a : __fmul_rn(a, slope);
-      b = b > 0.f ? b : __fmul_rn(b, slope);
-      h[i] = __floats2bfloat162_rn(a, b);
-    }
-    return raw;
-  }
-  __device__ static float load1(const __nv_bfloat16* p) { return __bfloat162float(p[0]); }
-  __device__ static void act_store1(__nv_bfloat16* p, float v, float slope) {
-    float a = __bfloat162float(__float2bfloat16_rn(v));
-    a = a > 0.f ? a : __fmul_rn(a, slope);
-    p[0] = __float2bfloat16_rn(a);
-  }
-};
-
-template <>
-struct Io16<float> {
-  static constexpr int kWidth = 4;
-  __device__ static void unpack(const uint4& raw, float (&v)[4]) {
-    v[0] = __uint_as_float(raw.x);
-    v[1] = __uint_as_float(raw.y);
-    v[2] = __uint_as_float(raw.z);
-    v[3] = __uint_as_float(raw.w);
-  }
-  __device__ static uint4 act_pack(const float (&v)[4], float slope) {
-    float a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = v[i] > 0.f ? v[i] : __fmul_rn(v[i], slope);
-    return make_uint4(__float_as_uint(a[0]), __float_as_uint(a[1]),
-                      __float_as_uint(a[2]), __float_as_uint(a[3]));
-  }
-  __device__ static float load1(const float* p) { return __ldg(p); }
-  __device__ static void act_store1(float* p, float v, float slope) {
-    p[0] = v > 0.f ? v : __fmul_rn(v, slope);
-  }
-};
-
-// Threads of a block of `rows` rows: C / V a row, one on the narrow path.
-__host__ __device__ inline int block_threads(int rows, int C, int V) {
-  return C < V ? rows : rows * (C / V);
+__device__ inline float act(float v, float slope) {
+  const float a = Io16<T>::round(v);
+  return a > 0.f ? a : __fmul_rn(a, slope);
 }
 
 // grid (G, N), block block_threads(rows, C, V) threads
@@ -126,24 +66,18 @@ __global__ void inorm_act_kernel(const T* __restrict__ x, T* __restrict__ out,
   const float* mul_n = mul + (size_t)n * C;
   const float* bias_n = bias + (size_t)n * bias_n_stride;
 
-  // the wide path walks M rows; the narrow path splits the sample's flat
-  // run into head elements before its first 16-byte boundary, `count`
-  // whole vectors, then the tail
-  const long long L = M * C;
-  long long head = narrow ? (V - (long long)n * L % V) % V : 0;
-  if (head > L) head = L;
-  const long long count = narrow ? (L - head) / V : M;
+  const Walk wk = walk(n, M, C, V);
 
   float mu[V], w[V], b[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    const int c = narrow ? (int)((head + i) % C) : cg * V + i;
+    const int c = narrow ? (int)((wk.head + i) % C) : cg * V + i;
     mu[i] = __ldg(mean_n + c);
     w[i] = __ldg(mul_n + c);
     b[i] = __ldg(bias_n + c);
   }
   const size_t offset =
-      (size_t)n * (size_t)M * C + (narrow ? (size_t)head : (size_t)cg * V);
+      (size_t)n * (size_t)M * C + (narrow ? (size_t)wk.head : (size_t)cg * V);
   const uint4* src = reinterpret_cast<const uint4*>(x + offset);
   uint4* dst = reinterpret_cast<uint4*>(out + offset);
   const size_t row_vecs = narrow ? 1 : (size_t)C / V;
@@ -157,10 +91,11 @@ __global__ void inorm_act_kernel(const T* __restrict__ x, T* __restrict__ out,
       const float v = __fadd_rn(
           __fmul_rn(__fsub_rn(Io16<T>::load1(xs + e), __ldg(mean_n + c)), __ldg(mul_n + c)),
           __ldg(bias_n + c));
-      Io16<T>::act_store1(os + e, v, slope);
+      Io16<T>::store1(os + e, act<T>(v, slope));
     };
-    for (long long e = 0; e < head; ++e) one(e);
-    for (long long e = head + count * V; e < L; ++e) one(e);
+    const long long L = M * C;
+    for (long long e = 0; e < wk.head; ++e) one(e);
+    for (long long e = wk.head + wk.count * V; e < L; ++e) one(e);
   }
 
   auto apply = [&](const uint4& raw) {
@@ -168,12 +103,12 @@ __global__ void inorm_act_kernel(const T* __restrict__ x, T* __restrict__ out,
     Io16<T>::unpack(raw, v);
 #pragma unroll
     for (int i = 0; i < V; ++i)
-      v[i] = __fadd_rn(__fmul_rn(__fsub_rn(v[i], mu[i]), w[i]), b[i]);
-    return Io16<T>::act_pack(v, slope);
+      v[i] = act<T>(__fadd_rn(__fmul_rn(__fsub_rn(v[i], mu[i]), w[i]), b[i]), slope);
+    return Io16<T>::pack(v);
   };
 
   long long m = (long long)blockIdx.x * rows + r;
-  for (; m + (kUnroll - 1) * step < count; m += kUnroll * step) {
+  for (; m + (kUnroll - 1) * step < wk.count; m += kUnroll * step) {
     uint4 raw[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
@@ -182,7 +117,7 @@ __global__ void inorm_act_kernel(const T* __restrict__ x, T* __restrict__ out,
     for (int u = 0; u < kUnroll; ++u)
       dst[(size_t)(m + u * step) * row_vecs] = apply(raw[u]);
   }
-  for (; m < count; m += step)
+  for (; m < wk.count; m += step)
     dst[(size_t)m * row_vecs] = apply(__ldg(src + (size_t)m * row_vecs));
 }
 

@@ -6,7 +6,9 @@ interface. At first use it is compiled with ``nvcc`` for ``sm_90a`` into its
 own shared library under ``deepwmh_tpu_torch/_build/`` (named by a hash of
 the source, the headers of ``csrc/`` and the flags, so an edit rebuilds) and
 loaded with ``ctypes``. Nothing is built or loaded at import time. K1 is two
-kernels: the statistics and the pass that applies them.
+kernels: the statistics and the pass that applies them; its backward is two
+more (``instance_norm_act_backward.cu``), which ``instance_norm_act_fn``, a
+``torch.autograd.Function``, puts behind K1's forward.
 
 A wrapper takes its kernel's plain version only for a tensor on the CPU; for
 a CUDA tensor it launches the kernel or raises. Each wrapper counts its
@@ -73,7 +75,7 @@ def build(sources) -> dict:
         out = library_path(source)
         if os.path.isfile(out):
             continue
-        tmp = "%s.tmp-%d" % (out, os.getpid())
+        tmp = "%s.tmp-%d-%d" % (out, os.getpid(), threading.get_ident())
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -208,12 +210,14 @@ class _ChannelsLastKernel(CudaKernel):
         raise NotImplementedError
 
     def _refuse_autograd(self, *tensors) -> None:
-        """No backward: a call that autograd would have to see through
-        raises, on the CPU too, so that a model on K1 never trains on the
-        plain version unnoticed."""
+        """A wrapper has no backward of its own: a call that autograd would
+        have to see through raises, on the CPU too, so that nothing trains
+        on the plain version unnoticed. ``instance_norm_act_fn`` is K1 with
+        its backward."""
         if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
             raise RuntimeError("%s: the CUDA kernel has no backward; call it under "
-                               "torch.no_grad() or torch.inference_mode()" % self.name)
+                               "torch.no_grad() or torch.inference_mode(), or "
+                               "differentiate instance_norm_act_fn" % self.name)
 
     def _check_view(self, x: torch.Tensor) -> None:
         if not x.is_contiguous() or x.data_ptr() % 16:
@@ -236,45 +240,22 @@ def _on_device(device: torch.device, fn, *args) -> int:
         return fn(*args)
 
 
-class InstanceNormStats(_ChannelsLastKernel):
-    """K1 (replaces deepwmh_tpu/ops/pallas_kernels.py
-    instance_norm_stats_pallas). ``x`` [N, *spatial, C] bf16 or f32 ->
-    (mean, var) f32 [N, C] (two views of one [2, N, C] tensor), var
-    unclamped. On CUDA ``x`` must be contiguous (a channels-last
-    activation's permuted view is), 16-byte aligned, with C a multiple or a
-    divisor of 16 bytes' worth of elements. One launch on the current stream, no
-    synchronisation; the blocks' partial sums go to a workspace kept per
-    device and stream, grown when needed and never freed per call."""
+class _TwoLevelSum(_ChannelsLastKernel):
+    """A kernel that sums per (sample, channel) over a [N, *spatial, C]
+    view in one launch: block partials, then the two-level sum elected by
+    tickets, in a fixed order (K1's statistics and the backward's sums).
+    The partials go to a workspace kept per device and stream, grown when
+    needed and never freed per call."""
 
-    name = "instance_norm_stats"
-    source = "instance_norm_stats.cu"
     MIN_ROWS_PER_THREAD = 16  # fewer partials to add up at the deep stages
 
     def __init__(self):
         super().__init__()
         self._workspace = {}  # (device, stream) -> (partials, group sums, tickets)
 
-    def _bind(self, lib) -> None:
-        for fn in (lib.inorm_stats_bf16, lib.inorm_stats_f32):
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-        lib.inorm_stats_blocks_per_sm.argtypes = [ctypes.c_int] * 4
-        lib.inorm_stats_blocks_per_sm.restype = ctypes.c_int
-
     def _shared_bytes(self, threads, rows, N, C) -> int:
         # the rows' sums in f32, then a summing block's slices in double
         return max(2 * rows * C * 4, 2 * max(threads, N * C) * 8)
-
-    def _blocks_per_sm(self, lib, bf16, N, C, rows) -> int:
-        return lib.inorm_stats_blocks_per_sm(bf16, N, C, rows)
-
-    def _launch_fn(self, lib, bf16):
-        return lib.inorm_stats_bf16 if bf16 else lib.inorm_stats_f32
 
     @staticmethod
     def group_blocks(G: int) -> int:
@@ -294,6 +275,44 @@ class InstanceNormStats(_ChannelsLastKernel):
             self._workspace[(device, stream)] = ws
         return ws
 
+    def _scratch_args(self, dev, stream, N, G, C):
+        """(partials, group sums, tickets, blocks a group) pointers for one
+        launch on ``stream``."""
+        per_group = self.group_blocks(G)
+        partial, group_sum, ticket = self._scratch(dev, stream, N, G, C, -(-G // per_group))
+        return partial.data_ptr(), group_sum.data_ptr(), ticket.data_ptr(), per_group
+
+
+class InstanceNormStats(_TwoLevelSum):
+    """K1 (replaces deepwmh_tpu/ops/pallas_kernels.py
+    instance_norm_stats_pallas). ``x`` [N, *spatial, C] bf16 or f32 ->
+    (mean, var) f32 [N, C] (two views of one [2, N, C] tensor), var
+    unclamped. On CUDA ``x`` must be contiguous (a channels-last
+    activation's permuted view is), 16-byte aligned, with C a multiple or a
+    divisor of 16 bytes' worth of elements. One launch on the current stream, no
+    synchronisation."""
+
+    name = "instance_norm_stats"
+    source = "instance_norm_stats.cu"
+
+    def _bind(self, lib) -> None:
+        for fn in (lib.inorm_stats_bf16, lib.inorm_stats_f32):
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+        lib.inorm_stats_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+        lib.inorm_stats_blocks_per_sm.restype = ctypes.c_int
+
+    def _blocks_per_sm(self, lib, bf16, N, C, rows) -> int:
+        return lib.inorm_stats_blocks_per_sm(bf16, N, C, rows)
+
+    def _launch_fn(self, lib, bf16):
+        return lib.inorm_stats_bf16 if bf16 else lib.inorm_stats_f32
+
     def __call__(self, x: torch.Tensor):
         # the common case in few Python steps: at the deep stages the call
         # costs the host more than the card
@@ -306,13 +325,11 @@ class InstanceNormStats(_ChannelsLastKernel):
         N, M, C, rows, G, fn = self._plans.get((x.shape, x.dtype, dev)) or self._plan(x)
         self._check_view(x)
         stream = _current_stream(dev)
-        per_group = self.group_blocks(G)
-        partial, group_sum, ticket = self._scratch(dev, stream, N, G, C, -(-G // per_group))
+        partial, group_sum, ticket, per_group = self._scratch_args(dev, stream, N, G, C)
         stats = torch.empty((2, N, C), dtype=torch.float32, device=dev)
         out = stats.data_ptr()
-        err = _on_device(dev, fn, x.data_ptr(), partial.data_ptr(), group_sum.data_ptr(),
-                         ticket.data_ptr(), out, out + N * C * 4, N, M, C, rows, G,
-                         per_group, 1.0 / M, stream)
+        err = _on_device(dev, fn, x.data_ptr(), partial, group_sum, ticket, out,
+                         out + N * C * 4, N, M, C, rows, G, per_group, 1.0 / M, stream)
         if err:
             raise RuntimeError("instance_norm_stats: launch failed, CUDA error %d" % err)
         self._count()
@@ -376,14 +393,7 @@ class InstanceNormAct(_ChannelsLastKernel):
             raise ValueError("instance_norm_act: unsupported device %s" % dev)
         N, M, C, rows, G, fn = self._plans.get((x.shape, x.dtype, dev)) or self._plan(x)
         self._check_view(x)
-        for what, t, shapes in (("mean", mean, ((N, C),)), ("mul", mul, ((N, C),)),
-                                ("bias", bias, ((N, C), (C,)))):
-            if (t.dtype != torch.float32 or t.device != dev
-                    or tuple(t.shape) not in shapes or not t.is_contiguous()):
-                raise ValueError("instance_norm_act: %s must be a contiguous f32 %s "
-                                 "tensor on %s (got %s %s on %s)"
-                                 % (what, " or ".join(map(str, shapes)), dev,
-                                    t.dtype, tuple(t.shape), t.device))
+        _check_per_channel(self.name, dev, N, C, mean=mean, mul=mul, bias=bias)
         out = torch.empty_like(x)
         err = _on_device(dev, fn, x.data_ptr(), out.data_ptr(), mean.data_ptr(),
                          mul.data_ptr(), bias.data_ptr(), C if bias.dim() == 2 else 0, N, M,
@@ -395,6 +405,243 @@ class InstanceNormAct(_ChannelsLastKernel):
 
 
 instance_norm_act = InstanceNormAct()
+
+
+def _check_per_channel(name, dev, N, C, **tensors) -> None:
+    """Each of ``tensors`` a contiguous f32 [N, C] tensor on ``dev``;
+    ``bias`` may also be [C]."""
+    for what, t in tensors.items():
+        shapes = ((N, C), (C,)) if what == "bias" else ((N, C),)
+        if (t.dtype != torch.float32 or t.device != dev
+                or tuple(t.shape) not in shapes or not t.is_contiguous()):
+            raise ValueError("%s: %s must be a contiguous f32 %s tensor on %s (got %s %s on %s)"
+                             % (name, what, " or ".join(map(str, shapes)), dev, t.dtype,
+                                tuple(t.shape), t.device))
+
+
+# ---------------------------------------------------------------------- #
+# K1's backward: the sums over each (sample, channel), then dx
+# ---------------------------------------------------------------------- #
+
+
+def _backward_g(x, dy, mean, mul, bias, slope: float):
+    """(g, x - mean) of the backward in f32 (f64 for f64 ``x``): the
+    pre-activation as the apply pass rounds it, then the leaky ReLU's
+    backward in ``x``'s dtype (the cast's backward is exact)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xc = x.to(ct) - _per_sample(mean, x)
+    z = (xc * _per_sample(mul, x) + _per_sample(bias, x)).to(x.dtype)
+    g = torch.where(z > 0, dy, (dy.to(ct) * slope).to(x.dtype))
+    return g.to(ct), xc
+
+
+def instance_norm_act_bwd_stats_reference(x, dy, mean, mul, bias, var, slope: float,
+                                          eps: float):
+    """Plain version of the backward's first pass: from the sums of g and
+    of g * (x - mean) over each (sample, channel) of ``x``, ``dy`` [N,
+    *spatial, C], the dx pass's terms k1 = sum(g) / M and k2 = [var >= 0] *
+    rstd^2 * sum(g * (x - mean)) / M [N, C] and the weight's and bias's
+    gradients, sums over the samples of sum(g * x^) and of sum(g) [C]; in
+    f32 (f64 for f64 ``x``). ``mean``, ``mul``, ``bias`` as the apply pass
+    takes them, ``var`` K1's raw variance, rstd = rsqrt(max(var, 0) + eps)."""
+    g, xc = _backward_g(x, dy, mean, mul, bias, slope)
+    axes = tuple(range(1, x.dim() - 1))
+    m = x.numel() // (x.shape[0] * x.shape[-1])
+    sum_g, sum_gxc = g.sum(axes), (g * xc).sum(axes)
+    rstd = torch.rsqrt(var.clamp_min(0.0) + eps)
+    sum_gxhat = sum_gxc * rstd
+    k2 = torch.where(var >= 0, sum_gxhat * rstd / m, 0.0)
+    return sum_g / m, k2, sum_gxhat.sum(0), sum_g.sum(0)
+
+
+def instance_norm_act_bwd_dx_reference(x, dy, mean, mul, bias, k1, k2, slope: float):
+    """Plain version of the backward's dx pass: ``cast(mul * ((g - k1) -
+    (x - mean) * k2))``, one rounding a step; ``k1``, ``k2`` [N, C]."""
+    g, xc = _backward_g(x, dy, mean, mul, bias, slope)
+    t = (g - _per_sample(k1, x)) - xc * _per_sample(k2, x)
+    return (t * _per_sample(mul, x)).to(x.dtype)
+
+
+class InstanceNormActBwdStats(_TwoLevelSum):
+    """The backward of K1's chain, first pass (replaces no TPU kernel; see
+    ``csrc/instance_norm_act_backward.cu``): ``instance_norm_act_bwd_stats_
+    reference`` in one launch, its sums in a fixed order (two calls give
+    the same bits) and its [N, C] terms in double. ``x`` and ``dy`` [N,
+    *spatial, C] under K1's layout rules, the forward's ``mean``, ``mul``,
+    ``var`` f32 [N, C] and ``bias`` [N, C] or [C] -> (k1, k2 [N, C], d
+    weight, d bias [C]) f32, views of one tensor. The workspace as K1's
+    statistics'."""
+
+    name = "instance_norm_act_bwd_stats"
+    source = "instance_norm_act_backward.cu"
+
+    def _bind(self, lib) -> None:
+        for fn in (lib.inorm_act_bwd_stats_bf16, lib.inorm_act_bwd_stats_f32):
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.inorm_act_bwd_stats_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+        lib.inorm_act_bwd_stats_blocks_per_sm.restype = ctypes.c_int
+
+    def _blocks_per_sm(self, lib, bf16, N, C, rows) -> int:
+        return lib.inorm_act_bwd_stats_blocks_per_sm(bf16, N, C, rows)
+
+    def _launch_fn(self, lib, bf16):
+        return lib.inorm_act_bwd_stats_bf16 if bf16 else lib.inorm_act_bwd_stats_f32
+
+    def __call__(self, x, dy, mean, mul, bias, var, slope: float, eps: float):
+        dev = x.device
+        self._refuse_autograd(x, dy, mean, mul, bias, var)
+        if dev.type != "cuda":
+            if dev.type == "cpu":
+                return instance_norm_act_bwd_stats_reference(x, dy, mean, mul, bias, var,
+                                                             slope, eps)
+            raise ValueError("%s: unsupported device %s" % (self.name, dev))
+        N, M, C, rows, G, fn = self._plans.get((x.shape, x.dtype, dev)) or self._plan(x)
+        _check_pair(self, x, dy)
+        _check_per_channel(self.name, dev, N, C, mean=mean, mul=mul, bias=bias, var=var)
+        stream = _current_stream(dev)
+        partial, group_sum, ticket, per_group = self._scratch_args(dev, stream, N, G, C)
+        terms = torch.empty(2 * N * C + 2 * C, dtype=torch.float32, device=dev)
+        err = _on_device(dev, fn, x.data_ptr(), dy.data_ptr(), mean.data_ptr(), mul.data_ptr(),
+                         bias.data_ptr(), C if bias.dim() == 2 else 0, partial, group_sum,
+                         ticket, var.data_ptr(), terms.data_ptr(), N, M, C, rows, G, per_group,
+                         slope, eps, stream)
+        if err:
+            raise RuntimeError("%s: launch failed, CUDA error %d" % (self.name, err))
+        self._count()
+        k, params = terms[:2 * N * C].view(2, N, C), terms[2 * N * C:].view(2, C)
+        return k[0], k[1], params[0], params[1]
+
+
+class InstanceNormActBwdDx(_ChannelsLastKernel):
+    """The backward of K1's chain, second pass:
+    ``instance_norm_act_bwd_dx_reference`` in one pass, with its bits.
+    ``x``, ``dy`` [N, *spatial, C] under K1's layout rules -> dx, a new
+    contiguous tensor of ``x``'s shape and dtype."""
+
+    name = "instance_norm_act_bwd_dx"
+    source = "instance_norm_act_backward.cu"
+
+    def _bind(self, lib) -> None:
+        for fn in (lib.inorm_act_bwd_dx_bf16, lib.inorm_act_bwd_dx_f32):
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.inorm_act_bwd_dx_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        lib.inorm_act_bwd_dx_blocks_per_sm.restype = ctypes.c_int
+
+    def _blocks_per_sm(self, lib, bf16, N, C, rows) -> int:
+        return lib.inorm_act_bwd_dx_blocks_per_sm(bf16, C, rows)
+
+    def _launch_fn(self, lib, bf16):
+        return lib.inorm_act_bwd_dx_bf16 if bf16 else lib.inorm_act_bwd_dx_f32
+
+    def __call__(self, x, dy, mean, mul, bias, k1, k2, slope: float):
+        dev = x.device
+        self._refuse_autograd(x, dy, mean, mul, bias, k1, k2)
+        if dev.type != "cuda":
+            if dev.type == "cpu":
+                return instance_norm_act_bwd_dx_reference(x, dy, mean, mul, bias, k1, k2, slope)
+            raise ValueError("%s: unsupported device %s" % (self.name, dev))
+        N, M, C, rows, G, fn = self._plans.get((x.shape, x.dtype, dev)) or self._plan(x)
+        _check_pair(self, x, dy)
+        _check_per_channel(self.name, dev, N, C, mean=mean, mul=mul, bias=bias, k1=k1, k2=k2)
+        dx = torch.empty_like(x)
+        err = _on_device(dev, fn, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), mean.data_ptr(),
+                         mul.data_ptr(), bias.data_ptr(), C if bias.dim() == 2 else 0,
+                         k1.data_ptr(), k2.data_ptr(), N, M, C, rows, G, slope,
+                         _current_stream(dev))
+        if err:
+            raise RuntimeError("%s: launch failed, CUDA error %d" % (self.name, err))
+        self._count()
+        return dx
+
+
+def _check_pair(kernel, x, dy) -> None:
+    """``x`` and ``dy`` readable by ``kernel``: the same shape, dtype and
+    device, each contiguous and 16-byte aligned."""
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError("%s: dy must match x (got %s %s on %s, x %s %s on %s)"
+                         % (kernel.name, tuple(dy.shape), dy.dtype, dy.device,
+                            tuple(x.shape), x.dtype, x.device))
+    kernel._check_view(x)
+    kernel._check_view(dy)
+
+
+instance_norm_act_bwd_stats = InstanceNormActBwdStats()
+instance_norm_act_bwd_dx = InstanceNormActBwdDx()
+
+
+def _norm_act_backward(stats_fn, dx_fn, x, dy, mean, var, mul, bias, slope, eps):
+    """(dx, d weight, d bias) of K1's chain from the forward's statistics
+    and multiplier, by autograd's rules through the plain chain (var's
+    clamp passes the gradient where var >= 0): ``stats_fn`` gives the dx
+    pass's [N, C] terms and the parameters' gradients, ``dx_fn`` dx."""
+    k1, k2, d_weight, d_bias = stats_fn(x, dy, mean, mul, bias, var, slope, eps)
+    return dx_fn(x, dy, mean, mul, bias, k1, k2, slope), d_weight, d_bias
+
+
+def instance_norm_act_backward_reference(x, dy, mean, var, mul, bias, slope: float,
+                                         eps: float):
+    """Plain version of K1's backward: (dx, d weight, d bias) of K1's
+    forward (``instance_norm_act_fn``) given its output's gradient ``dy``,
+    from the forward's ``mean``, ``var`` and ``mul`` = rsqrt(max(var, 0) +
+    eps) * weight [N, C]: dx = cast(mul * (g - mean(g) - x^ * mean(g *
+    x^))) with x^ the normalised x, d weight = sum over samples of sum(g *
+    x^), d bias of sum(g). In f32 (f64 for f64 ``x``)."""
+    return _norm_act_backward(instance_norm_act_bwd_stats_reference,
+                              instance_norm_act_bwd_dx_reference, x, dy, mean, var, mul,
+                              bias, slope, eps)
+
+
+def instance_norm_act_backward(x, dy, mean, var, mul, bias, slope: float, eps: float):
+    """``instance_norm_act_backward_reference`` on the backward's two
+    kernels (their plain versions on the CPU): two launches."""
+    return _norm_act_backward(instance_norm_act_bwd_stats, instance_norm_act_bwd_dx, x, dy,
+                              mean, var, mul, bias, slope, eps)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, copied only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+class _InstanceNormActFn(torch.autograd.Function):
+    """K1 forward and K1's backward kernels as one differentiable op. Saves
+    ``x`` (the conv output, bf16 in training) and the f32 [N, C] ``mean``,
+    ``var`` and ``mul``: nothing f32 of the activation's size."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, slope, eps):
+        # flax GroupNorm's order: var clamped at 0, then one apply pass
+        mean, var = instance_norm_stats(x)
+        mul = torch.rsqrt(var.clamp_min(0.0) + eps) * weight
+        out = instance_norm_act(x, mean, mul, bias, slope)
+        ctx.save_for_backward(x, mean, var, mul, bias)
+        ctx.slope, ctx.eps = slope, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, mean, var, mul, bias = ctx.saved_tensors
+        grads = instance_norm_act_backward(x, _aligned(dout), mean, var, mul, bias, ctx.slope,
+                                           ctx.eps)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad)) + (None, None)
+
+
+def instance_norm_act_fn(x, weight, bias, slope: float, eps: float):
+    """K1 on ``x`` [N, *spatial, C] (the statistics, then the apply pass
+    with ``mul = rsqrt(max(var, 0) + eps) * weight``, flax GroupNorm's
+    order), as autograd differentiates it: K1's two kernels forward, the
+    backward's two kernels (``instance_norm_act_backward``) for ``x``,
+    ``weight`` [C] and ``bias`` [C]. On the CPU every step takes its plain
+    version."""
+    return _InstanceNormActFn.apply(x, weight, bias, slope, eps)
 
 
 # ---------------------------------------------------------------------- #
@@ -598,4 +845,6 @@ median3 = Median3()
 
 # every kernel of the port, for the build step and the launch counts
 KERNELS = {"instance_norm_stats": instance_norm_stats,
-           "instance_norm_act": instance_norm_act, "median3": median3}
+           "instance_norm_act": instance_norm_act,
+           "instance_norm_act_bwd_stats": instance_norm_act_bwd_stats,
+           "instance_norm_act_bwd_dx": instance_norm_act_bwd_dx, "median3": median3}

@@ -16,8 +16,8 @@ Every phase is gated by the JAX package's marker checkpoints and every
 artifact is loadability-probed, so the pipeline resumes at any point, also
 from a folder the JAX package wrote (and the other way round).
 
-Training builds its model with ``fused_norm`` off (K1's kernels have no
-backward). The sweeps of stages 2-4 and 3-5 run one inference model on K1
+Training runs on K1, forward and backward (``unet/train.Trainer``). The
+sweeps of stages 2-4 and 3-5 run one inference model on K1
 under ``torch.inference_mode``; stage 2-4 loads each ensemble epoch's
 weights into it in place. Every phase that runs records its seconds (and
 its peak device memory on a card) in ``stage_stats``. With ``mesh`` (a

@@ -7,8 +7,10 @@ volumes once, then register any pair with one forward pass: v = 1.5 *
 tanh(net), warp = exp(v) by scaling-and-squaring. Loss = -LNCC(fixed,
 moving o warp) + smooth_weight * |grad v|^2, with Adam (``utils/adam.py``).
 
-Training runs the model with ``fused_norm`` off (K1's kernels have no
-backward); ``register`` runs it on K1 under ``torch.inference_mode()``.
+Training runs the model with ``fused_norm`` off (the plain f32 chain, which
+autograd differentiates: ``policy.py``'s timing constants were measured on
+it, though K1 now has a backward); ``register`` runs it on K1 under
+``torch.inference_mode()``.
 Pair draws are the JAX package's (``np.random.RandomState(rng_seed)``); the
 initial weights are flax's distributions from a torch generator seeded with
 ``rng_seed`` (flax's own draws cannot be replayed: load them with

@@ -9,11 +9,14 @@ activations kept in ``torch.channels_last_3d`` memory: then
 and the instance-norm statistics kernel (K1, ``ops/kernels.py``) and the
 normalize + leaky ReLU pass that consumes them read the activation in place.
 
-K1's kernels have no backward, so a model built with ``fused_norm=False``
-(the trainer's) runs flax GroupNorm's f32 chain out of place instead, which
-autograd differentiates; ``remat=True`` recomputes the blocks of the stages
-up to ``remat_max_stage`` in the backward pass (``torch.utils.checkpoint``),
-as the JAX trainer's ``nn.remat`` does.
+Under autograd the block runs ``instance_norm_act_fn``: K1's two kernels
+forward and K1's two backward kernels, saving only the bf16 conv output and
+the [N, C] statistics. A model built with ``fused_norm=False`` runs flax
+GroupNorm's f32 chain out of place instead, which autograd differentiates
+pass by pass: the plain reference the tests hold K1 to. ``remat=True``
+recomputes the blocks of the stages up to ``remat_max_stage`` in the
+backward pass (``torch.utils.checkpoint``), as the JAX trainer's
+``nn.remat`` does.
 
 The flax model's depth-decomposed full-resolution conv is a TPU lowering of
 the same math; here every conv is one ``F.conv3d``. Parameter names map
@@ -29,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from deepwmh_tpu_torch.ops.kernels import instance_norm_act, instance_norm_stats
+from deepwmh_tpu_torch.ops.kernels import instance_norm_act_fn
 from deepwmh_tpu_torch.unet.plan import Plan, features_per_stage
 
 LRELU_SLOPE = 0.01
@@ -89,10 +92,11 @@ def _leaky_slope(dtype) -> float:
 
 
 class ConvNormAct(nn.Module):
-    """Conv -> instance norm -> leaky ReLU. With ``fused_norm`` (inference)
-    the statistics come from K1 and the rest from K1's apply pass, neither
-    of which autograd can see through; without it, the same math as an
-    out-of-place f32 chain that it can."""
+    """Conv -> instance norm -> leaky ReLU. With ``fused_norm``,
+    ``instance_norm_act_fn``: the statistics from K1, the rest from K1's
+    apply pass, and under autograd K1's backward kernels. Without it, the
+    same math as an out-of-place f32 chain that autograd differentiates pass
+    by pass."""
 
     def __init__(self, cin, cout, kernel, stride=(1, 1, 1),
                  dtype=torch.bfloat16, pad_style="same", fused_norm: bool = True):
@@ -107,22 +111,21 @@ class ConvNormAct(nn.Module):
     def forward(self, x):
         if not self.fused_norm:
             return self._plain(self.conv(x))
-        # [N, D, H, W, C] view of the channels-last conv output, no copy
-        y = self.conv(x).permute(0, 2, 3, 4, 1)
-        mean, var = instance_norm_stats(y)
+        # [N, D, H, W, C] view of the channels-last conv output, no copy.
         # flax GroupNorm: var clamped at 0, then
         # (x - mean) * (scale * rsqrt(var + eps)) + bias in f32, cast down,
-        # then the leaky ReLU: one pass (K1's apply kernel on the card)
-        mul = torch.rsqrt(var.clamp_min(0.0) + NORM_EPS) * self.norm_weight
-        out = instance_norm_act(y, mean, mul, self.norm_bias, self.slope)
+        # then the leaky ReLU: K1's statistics and apply kernels on the card,
+        # with K1's backward kernels behind them when autograd records
+        y = self.conv(x).permute(0, 2, 3, 4, 1)
+        out = instance_norm_act_fn(y, self.norm_weight, self.norm_bias, self.slope, NORM_EPS)
         return out.permute(0, 4, 1, 2, 3)
 
     def _plain(self, y):
         """flax GroupNorm (one channel per group) + leaky ReLU on the conv
         output [N, C, D, H, W]: f32 statistics, var clamped at 0, then
         ((y - mean) * (scale * rsqrt(var + eps)) + bias) in f32, cast to
-        the compute dtype."""
-        yf = y.float()
+        the compute dtype (f64 throughout for an f64 model)."""
+        yf = y.to(torch.promote_types(y.dtype, torch.float32))
         mean = yf.mean((2, 3, 4), keepdim=True)
         var = (yf * yf).mean((2, 3, 4), keepdim=True) - mean * mean
         shape = (1, -1, 1, 1, 1)
@@ -138,8 +141,8 @@ class UNet3D(nn.Module):
     at full resolution, or with ``deep_supervision=True`` the list of every
     level's logits, highest resolution first.
 
-    ``fused_norm`` (default, inference): every block on K1's kernels.
-    Training builds the model with it off. ``remat``: the blocks of stages
+    ``fused_norm`` (default): every block on K1's kernels, forward and,
+    under autograd, backward; off, the plain f32 chain. ``remat``: the blocks of stages
     0..``remat_max_stage`` keep no activations for the backward pass and
     are recomputed there (it applies only while autograd records). Neither
     flag changes the parameters."""

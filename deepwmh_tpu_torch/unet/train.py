@@ -17,8 +17,9 @@ hard Dice on ``val_batches`` sampled batches; ``noval`` makes the metric
 epoch + 1 and model_best a hard link of model_latest. Checkpoints are in
 the JAX package's layout, the optimizer state as flax stores optax's
 chain, so either package resumes the other's model_latest. The model
-trains with ``fused_norm`` off (K1's kernels have no backward; the JAX
-trainer keeps flax GroupNorm for the same reason) and remat on stages 0-1.
+trains on K1 (``fused_norm``: K1's kernels forward, its backward kernels
+for the gradient, their plain versions on the CPU; the JAX trainer keeps
+flax GroupNorm, which XLA differentiates) with remat on stages 0-1.
 
 With ``mesh`` (a ``parallel.mesh.Mesh``) the step is data parallel, as the
 JAX trainer's over its 'dp' axis: shard d takes rows d*B/n .. (d+1)*B/n - 1
@@ -138,7 +139,7 @@ class Trainer:
                                  % (device, mesh.home))
             device = mesh.home
         self.device = resolve_device(device)
-        self.model = UNet3D(plan, dtype=dtype, fused_norm=False, remat=True).to(
+        self.model = UNet3D(plan, dtype=dtype, remat=True).to(
             self.device, memory_format=torch.channels_last_3d)
         self.names = [n for n, _ in self.model.named_parameters()]
         self.params = [p for _, p in self.model.named_parameters()]

@@ -1,8 +1,11 @@
 """deepwmh_tpu_torch on a CUDA card: each hand-written kernel against its
 plain PyTorch version (the apply pass and K2 bit for bit, K1 within 1e-4
 and with the same bits on every call), the wrappers' checks, the U-Net
-and the 3 mm median on the card against the CPU, a model on K1 refusing
-autograd, the trainer's model launching no K1, the serving burst
+and the 3 mm median on the card against the CPU, K1's backward kernels
+against their plain versions (the flagship train shapes and the narrow
+widths; the same bits twice), the model on K1 under autograd and the
+trainer's step launching K1 forward and backward a block (remat's
+recompute counted; remat on and off the same gradients), the serving burst
 against one-case runs, K1 at the learned registration network's shapes
 (C = 8, 16, 32), registration's field gather on the card against the
 CPU, a tiny ``run_train`` on the card launching K1 and K2, the DICOM
@@ -60,7 +63,9 @@ def test_instance_norm_stats_matches_plain(cuda, shape, dtype):
 def test_instance_norm_stats_refuses_what_it_cannot_read(cuda):
     """Narrow widths that divide 16 bytes (C = 4 in bf16) are read since
     fault B0; other dtypes, rank < 3, widths neither a multiple nor a divisor
-    of 16 bytes' worth and widths past 1024 threads a block still raise."""
+    of 16 bytes' worth and widths past 1024 threads a block still raise, and
+    so do blocks past the statistics kernel's launch bounds (256 threads:
+    C > 2048 in bf16)."""
     x = torch.randn(1, 4, 4, 4, 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.instance_norm_stats(x.transpose(1, 2))
@@ -74,6 +79,9 @@ def test_instance_norm_stats_refuses_what_it_cannot_read(cuda):
         kernels.instance_norm_stats(x.reshape(-1, 32))
     with pytest.raises(ValueError, match="too wide"):
         kernels.instance_norm_stats(torch.zeros(1, 2, 8 * 1025, device=cuda,
+                                                dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="cannot launch"):
+        kernels.instance_norm_stats(torch.zeros(1, 2, 8 * 257, device=cuda,
                                                 dtype=torch.bfloat16))
     kernels.instance_norm_stats(x[..., :4].contiguous())
     torch.cuda.synchronize()
@@ -302,31 +310,196 @@ def _tiny_plan():
                 base_features=16, max_features=32)
 
 
+def _k1_launches(fn):
+    """fn() and each of K1's four kernels' launches during it."""
+    names = ("instance_norm_stats", "instance_norm_act", "instance_norm_act_bwd_stats",
+             "instance_norm_act_bwd_dx")
+    before = {n: kernels.KERNELS[n].launches for n in names}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, tuple(kernels.KERNELS[n].launches - before[n] for n in names)
+
+
+def _remat_blocks(plan, max_stage=1):
+    """The blocks of stages 0..max_stage, which remat runs twice."""
+    return sum(2 if i == plan.num_pools else 4 for i in range(min(max_stage, plan.num_pools) + 1))
+
+
 def test_fused_model_refuses_autograd(cuda):
-    """A model on K1 (fused_norm, the inference default) never trains on
-    the card: its first block raises under autograd."""
-    model = init_weights(UNet3D(_tiny_plan()), torch.Generator().manual_seed(0))
-    model = model.to(cuda, memory_format=torch.channels_last_3d)
-    with pytest.raises(RuntimeError, match="no backward"):
-        model(torch.randn(1, 1, 16, 16, 16, device=cuda))
+    """A model on K1 (fused_norm, the default) trains on the card since K1
+    has a backward: under autograd each block launches K1's two forward
+    kernels once and K1's two backward kernels once (remat off), and remat
+    adds one forward a block of stages 0-1; a finite loss and gradient.
+    (The name predates K1's backward; the test keeps it.)"""
+    plan = _tiny_plan()
+    blocks = 4 * plan.num_pools + 2
+    for remat, forwards in ((False, blocks), (True, blocks + _remat_blocks(plan))):
+        model = init_weights(UNet3D(plan, remat=remat), torch.Generator().manual_seed(0))
+        model = model.to(cuda, memory_format=torch.channels_last_3d)
+        x = torch.randn(2, 1, 16, 16, 16, device=cuda)
+
+        def step():
+            loss = model(x).float().square().mean()
+            return loss, torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+
+        (loss, grads), launched = _k1_launches(step)
+        assert launched == (forwards, forwards, blocks, blocks), (remat, launched)
+        assert torch.isfinite(loss)
+        assert all(torch.isfinite(g).all() for g in grads if g is not None)
 
 
 def test_training_model_launches_no_k1(cuda, tmp_path):
-    """A Trainer step (augmentation on) on the card: a finite loss, and not
-    one launch of K1's kernels."""
+    """A Trainer step (augmentation on) on the card runs K1: on the tiny
+    plan 18 launches of each forward kernel (10 blocks and remat's 8) and
+    10 of each backward kernel; at the flagship plan (patch 128x160x128,
+    batch 2) 30 and 22. A finite loss each. (The name predates K1's
+    backward; the test keeps it.)"""
+    from deepwmh_tpu_torch.unet.plan import default_plan_1mm_iso
     from deepwmh_tpu_torch.unet.train import TrainConfig, Trainer
 
-    tr = Trainer(_tiny_plan(), TrainConfig(epochs=1, batches_per_epoch=2), str(tmp_path),
-                 device=cuda)
-    tr.init_state(0)
-    g = torch.Generator().manual_seed(1)
-    images = torch.randn(2, 16, 16, 16, generator=g).to(cuda)
-    labels = (images > 1.0).long()
-    before = {name: k.launches for name, k in kernels.KERNELS.items()}
-    loss = tr.train_step(images, labels, tr.lr_at(0), torch.Generator(device=cuda).manual_seed(2))
+    for plan, (forwards, backwards) in ((_tiny_plan(), (18, 10)),
+                                        (default_plan_1mm_iso(), (30, 22))):
+        blocks = 4 * plan.num_pools + 2
+        assert (forwards, backwards) == (blocks + _remat_blocks(plan), blocks)
+        tr = Trainer(plan, TrainConfig(epochs=1, batches_per_epoch=2), str(tmp_path),
+                     device=cuda)
+        tr.init_state(0)
+        g = torch.Generator().manual_seed(1)
+        images = torch.randn((2,) + tuple(plan.patch_size), generator=g).to(cuda)
+        labels = (images > 1.0).long()
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        loss, launched = _k1_launches(lambda: tr.train_step(images, labels, tr.lr_at(0), gen))
+        assert torch.isfinite(loss)
+        assert launched == (forwards, forwards, backwards, backwards), (plan, launched)
+        del tr
+
+
+def _flagship_train_shapes():
+    """[2, *spatial, C] of every K1 call of a flagship train step (patch
+    128x160x128, batch 2)."""
+    from chip_smoke import stats_shapes
+    from deepwmh_tpu_torch.unet.plan import default_plan_1mm_iso
+
+    plan = default_plan_1mm_iso()
+    return [(2,) + spatial + (c,)
+            for spatial, c, _ in stats_shapes(plan, tuple(plan.patch_size))]
+
+
+def _backward_inputs(shape, dtype, device, seed, per_sample_bias=False):
+    """x, dy and the forward's statistics of ``x`` as K1 computes them,
+    with a unit-ish scale and a bias that sends part of the pre-activations
+    below 0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n, c = shape[0], shape[-1]
+    x = (torch.randn(shape, generator=g, device=device) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=g, device=device).to(dtype)
+    weight = torch.rand(c, generator=g, device=device) + 0.5
+    bias = torch.randn((n, c) if per_sample_bias else (c,), generator=g, device=device) - 0.3
+    mean, var = kernels.instance_norm_stats(x)
+    return x, dy, mean, var, weight, bias
+
+
+def _check_backward(x, dy, mean, var, weight, bias, slope):
+    """The backward's two kernels against their plain versions: the first
+    pass's terms the same bits on a second call and within 1e-5 of the
+    plain version's, relative to the same terms over |g| and |g * (x -
+    mean)| (f32 sums in another order than torch's reduction); dx from the
+    kernel's own terms bit for bit the plain dx pass; the whole backward
+    within one ulp of x's dtype of the plain one."""
+    mul = torch.rsqrt(var.clamp_min(0.0) + 1e-5) * weight
+    got = kernels.instance_norm_act_bwd_stats(x, dy, mean, mul, bias, var, slope, 1e-5)
+    again = kernels.instance_norm_act_bwd_stats(x, dy, mean, mul, bias, var, slope, 1e-5)
     torch.cuda.synchronize()
-    assert torch.isfinite(loss)
-    assert {name: k.launches for name, k in kernels.KERNELS.items()} == before
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = kernels.instance_norm_act_bwd_stats_reference(x, dy, mean, mul, bias, var, slope,
+                                                         1e-5)
+    g, xc = kernels._backward_g(x, dy, mean, mul, bias, slope)
+    axes = tuple(range(1, x.dim() - 1))
+    m = x.numel() // (x.shape[0] * x.shape[-1])
+    rstd = torch.rsqrt(var.clamp_min(0.0) + 1e-5)
+    # each term over |g| and |g * (x - mean)|: the size of its sum
+    abs_g, abs_gx = g.abs().sum(axes), (g * xc).abs().sum(axes) * rstd
+    del g, xc
+    sizes = (abs_g / m, abs_gx * rstd / m, abs_gx.sum(0), abs_g.sum(0))
+    for a, b, size in zip(got, want, sizes):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert bool(((a - b).abs() <= 1e-5 * size + 1e-30).all())
+    k1, k2 = got[0], got[1]
+    dx = kernels.instance_norm_act_bwd_dx(x, dy, mean, mul, bias, k1, k2, slope)
+    assert dx.dtype == x.dtype and dx.shape == x.shape and dx.is_contiguous()
+    assert torch.equal(dx, kernels.instance_norm_act_bwd_dx_reference(x, dy, mean, mul, bias,
+                                                                     k1, k2, slope))
+    got = kernels.instance_norm_act_backward(x, dy, mean, var, mul, bias, slope, 1e-5)
+    want = kernels.instance_norm_act_backward_reference(x, dy, mean, var, mul, bias, slope,
+                                                        1e-5)
+    ulp = 2.0 ** -7 if x.dtype == torch.bfloat16 else 2.0 ** -20
+    scale = float(want[0].float().abs().max())
+    assert bool(((got[0].float() - want[0].float()).abs()
+                 <= ulp * want[0].float().abs() + 1e-3 * scale).all())
+    for a, b, size in zip(got[1:], want[1:], sizes[2:]):
+        assert bool(((a - b).abs() <= 1e-5 * size + 1e-30).all())
+
+
+@pytest.mark.parametrize("i", range(6))
+def test_instance_norm_act_backward_at_flagship_train_shapes(cuda, i):
+    """K1's backward at each [2, M, C] of a flagship train step (bf16, the
+    bf16 model's slope), checked by _check_backward."""
+    shape = _flagship_train_shapes()[i]
+    slope = float(torch.tensor(0.01, dtype=torch.bfloat16))
+    _check_backward(*_backward_inputs(shape, torch.bfloat16, cuda, i), slope)
+
+
+@pytest.mark.parametrize("shape,dtype", NARROW_K1)
+def test_instance_norm_act_backward_narrow_widths(cuda, shape, dtype):
+    """K1's backward at K1's narrow widths (C = 1, 2, 4 bf16; 1, 2 f32),
+    heads and tails read element by element, per-sample and shared bias."""
+    for per_sample in (False, True):
+        _check_backward(*_backward_inputs(shape, dtype, cuda, 7, per_sample), 0.01)
+
+
+def test_instance_norm_act_backward_refuses_what_it_cannot_read(cuda):
+    x, dy, mean, var, weight, bias = _backward_inputs((1, 4, 4, 4, 32), torch.bfloat16, cuda, 0)
+    mul = torch.rsqrt(var.clamp_min(0.0) + 1e-5) * weight
+    with pytest.raises(ValueError, match="dy must match"):
+        kernels.instance_norm_act_bwd_stats(x, dy.float(), mean, mul, bias, var, 0.01, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.instance_norm_act_bwd_stats(x, dy.transpose(1, 2), mean, mul, bias, var, 0.01,
+                                            1e-5)
+    with pytest.raises(ValueError, match="var"):
+        kernels.instance_norm_act_bwd_stats(x, dy, mean, mul, bias, var[:, :16], 0.01, 1e-5)
+    with pytest.raises(ValueError, match="k2"):
+        kernels.instance_norm_act_bwd_dx(x, dy, mean, mul, bias, mean, mul.double(), 0.01)
+    with pytest.raises(ValueError, match="C % 8"):
+        kernels.instance_norm_act_bwd_dx(x[..., :3].contiguous(), dy[..., :3].contiguous(),
+                                         mean[:, :3].contiguous(), mul[:, :3].contiguous(),
+                                         bias[:3].contiguous(), mean[:, :3].contiguous(),
+                                         mean[:, :3].contiguous(), 0.01)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernels.instance_norm_act_bwd_stats(x, dy, mean, mul.requires_grad_(), bias, var, 0.01,
+                                            1e-5)
+
+
+def test_remat_on_and_off_give_the_same_gradients_on_k1(cuda):
+    """The tiny plan on K1 in bf16 (cuDNN deterministic): remat on and off
+    give the same loss and gradients bit for bit (K1's forward repeats its
+    bits when remat recomputes a block)."""
+    plan = _tiny_plan()
+    x = torch.randn(2, 1, 16, 16, 16, generator=torch.Generator().manual_seed(4)).to(cuda)
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        results = []
+        for remat in (True, False):
+            model = init_weights(UNet3D(plan, remat=remat), torch.Generator().manual_seed(0))
+            model = model.to(cuda, memory_format=torch.channels_last_3d)
+            loss = sum(o.float().square().mean() for o in model(x, deep_supervision=True))
+            results.append((loss, torch.autograd.grad(loss, list(model.parameters()))))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    (l1, g1), (l2, g2) = results
+    assert torch.equal(l1, l2)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
 
 
 def test_predict_case_full_batch_equals_one_case_runs(cuda):

@@ -89,12 +89,14 @@ def test_k1_reads_activations_in_place(monkeypatch):
     channels-last activation — what the CUDA kernel requires, with no copy."""
     jplan, plan, shape = _plans("even", "same")
     seen = []
+    stats = kernels.instance_norm_stats
 
     def record(x):
         seen.append((tuple(x.shape), x.is_contiguous()))
-        return kernels.instance_norm_stats(x)
+        return stats(x)
 
-    monkeypatch.setattr(tmodel, "instance_norm_stats", record)
+    # instance_norm_act_fn's forward looks K1 up in ops.kernels
+    monkeypatch.setattr(kernels, "instance_norm_stats", record)
     m = tmodel.init_weights(tmodel.UNet3D(plan), torch.Generator().manual_seed(0)).eval()
     with torch.no_grad():
         m(torch.randn(1, 1, *shape))
@@ -204,13 +206,14 @@ def test_apply_pass_reads_activations_in_place(monkeypatch):
     [N, D, H, W, C] view it hands K1, with its [N, C] statistics."""
     jplan, plan, shape = _plans("even", "same")
     seen = []
+    apply = kernels.instance_norm_act
 
     def record(x, mean, mul, bias, slope):
         seen.append((tuple(x.shape), x.is_contiguous(), tuple(mean.shape), tuple(mul.shape),
                      tuple(bias.shape)))
-        return kernels.instance_norm_act(x, mean, mul, bias, slope)
+        return apply(x, mean, mul, bias, slope)
 
-    monkeypatch.setattr(tmodel, "instance_norm_act", record)
+    monkeypatch.setattr(kernels, "instance_norm_act", record)
     m = tmodel.init_weights(tmodel.UNet3D(plan), torch.Generator().manual_seed(0)).eval()
     with torch.no_grad():
         m(torch.randn(1, 1, *shape))

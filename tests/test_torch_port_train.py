@@ -32,7 +32,7 @@ from deepwmh_tpu.unet.model import UNet3D as JUNet3D
 from deepwmh_tpu.unet.plan import Plan as JPlan
 from deepwmh_tpu.unet.train import TrainConfig as JTrainConfig
 from deepwmh_tpu.unet.train import Trainer as JTrainer
-from deepwmh_tpu_torch.ops import warp
+from deepwmh_tpu_torch.ops import kernels, warp
 from deepwmh_tpu_torch.unet import augment, losses
 from deepwmh_tpu_torch.unet import checkpoint as ckpt
 from deepwmh_tpu_torch.unet import model as tmodel
@@ -404,21 +404,125 @@ def test_remat_changes_nothing_but_memory():
 
 
 def test_fused_norm_model_refuses_autograd_and_matches_plain():
-    """A model on K1 (fused_norm, the inference default) raises under
-    autograd on the CPU too; without autograd its output equals the
-    training model's plain chain (bf16: the chains round alike to within
-    one bf16 ulp on a few elements)."""
+    """A model on K1 (fused_norm, the default) trains since K1 has a
+    backward: under autograd, on the CPU too, its bf16 loss and gradients
+    are the plain chain's (loss rtol 1e-3; each gradient leaf within 5% of
+    the largest leaf magnitude: bf16 rounds at other places in the two
+    backwards); without autograd its output equals the plain chain's (the
+    chains round alike to within one bf16 ulp on a few elements). A K1
+    wrapper called on its own under autograd still raises. (The name
+    predates K1's backward; the test keeps it.)"""
     plan = tiny_plan()
     fused = tmodel.init_weights(tmodel.UNet3D(plan), torch.Generator().manual_seed(0))
     plain = tmodel.UNet3D(plan, fused_norm=False)
     plain.load_state_dict(fused.state_dict())
-    x = torch.randn(1, 1, 16, 16, 16, generator=torch.Generator().manual_seed(1))
+    x = torch.randn(2, 1, 16, 16, 16, generator=torch.Generator().manual_seed(1))
+    labels = (x[:, 0] > 0.8).long()
     with pytest.raises(RuntimeError, match="no backward"):
-        fused(x)
+        kernels.instance_norm_stats(x.permute(0, 2, 3, 4, 1).requires_grad_())
+    got, want = [], []
+    for model, out in ((fused, got), (plain, want)):
+        loss = losses.deep_supervision_loss(model(x, deep_supervision=True), labels,
+                                            plan.pool_kernels)
+        out.append(loss.detach())
+        out.extend(torch.autograd.grad(loss, list(model.parameters()), allow_unused=True))
+    torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=0)
+    scale = max(float(w.abs().max()) for w in want[1:] if w is not None)
+    for a, b in zip(got[1:], want[1:]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert float((a - b).abs().max()) <= 0.05 * scale
     with torch.no_grad():
         a, b = fused(x), plain(x)
     assert (a.argmax(1) == b.argmax(1)).float().mean() > 0.99
     torch.testing.assert_close(a, b, atol=0.1, rtol=0.05)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_fused_norm_model_trains_like_the_plain_chain(remat):
+    """The K1 Function's CPU path (K1's plain versions forward,
+    ``instance_norm_act_backward_reference``'s pieces backward) against the
+    plain chain on the tiny plan in f32: the loss within rtol 1e-6 and
+    every gradient leaf within 1e-5 of the largest leaf magnitude (the two
+    backwards sum in other orders), remat on and off; with remat the
+    fused model's gradients equal its own without remat bit for bit."""
+    plan = tiny_plan()
+    images, labels = (torch.from_numpy(a) for a in _batch((16, 16, 16)))
+    results = {}
+    for fused, rm in ((True, remat), (False, remat), (True, not remat)):
+        m = tmodel.init_weights(tmodel.UNet3D(plan, dtype=torch.float32, fused_norm=fused,
+                                              remat=rm), torch.Generator().manual_seed(0))
+        loss = losses.deep_supervision_loss(m(images[:, None], deep_supervision=True), labels,
+                                            plan.pool_kernels)
+        grads = torch.autograd.grad(loss, list(m.parameters()), allow_unused=True)
+        results[fused, rm] = (loss.detach(), grads)
+    (l_f, g_f), (l_p, g_p) = results[True, remat], results[False, remat]
+    torch.testing.assert_close(l_f, l_p, rtol=1e-6, atol=0)
+    scale = max(float(g.abs().max()) for g in g_p if g is not None)
+    for a, b in zip(g_f, g_p):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert float((a - b).abs().max()) <= 1e-5 * scale
+    l_o, g_o = results[True, not remat]
+    assert torch.equal(l_f, l_o)
+    for a, b in zip(g_f, g_o):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _chain_inputs(N, C, dtype, seed):
+    """A ConvNormAct of width C in ``dtype`` with a non-trivial scale and a
+    bias that sends many pre-activations below 0 (the slope branch), and a
+    channels-last conv output [N, C, 5, 6, 7] whose channel 0 is near
+    constant (its raw variance can round below 0: the clamp's mask)."""
+    g = torch.Generator().manual_seed(seed)
+    blk = tmodel.ConvNormAct(C, C, (3, 3, 3), dtype=dtype)
+    if dtype == torch.float64:
+        blk = blk.double()
+    with torch.no_grad():
+        blk.norm_weight.copy_(torch.rand(C, generator=g) + 0.5)
+        blk.norm_bias.copy_(torch.randn(C, generator=g) * 0.5 - 0.4)
+    y = torch.randn(N, C, 5, 6, 7, generator=g, dtype=torch.float64) * 2 + 0.5
+    y[:, 0] = 0.3 + 1e-4 * y[:, 0]
+    y = y.to(dtype).contiguous(memory_format=torch.channels_last_3d).requires_grad_(True)
+    dy = torch.randn(y.shape, generator=g, dtype=torch.float64).to(dtype)
+    return blk, y, dy.contiguous(memory_format=torch.channels_last_3d)
+
+
+# dtype -> (dx's tolerance relative to its largest magnitude, one ulp
+# relative, the parameters' gradients' relative tolerance): f64 tight; f32
+# sums in other orders; bf16 dx may round to the neighbouring bf16 value
+BACKWARD_TOL = {torch.float64: (1e-10, 0.0, 1e-10), torch.float32: (1e-5, 0.0, 1e-5),
+                torch.bfloat16: (1e-3, 2.0 ** -7, 1e-5)}
+
+
+@pytest.mark.parametrize("dtype", sorted(BACKWARD_TOL, key=str))
+@pytest.mark.parametrize("N", [1, 2])
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 32])
+def test_instance_norm_act_backward_reference_matches_autograd(dtype, N, C):
+    """K1's backward in plain torch (``kernels.instance_norm_act_backward_
+    reference``) against autograd through ``ConvNormAct._plain``, from the
+    plain chain's own statistics: dx, the norm weight's and bias's
+    gradients, within BACKWARD_TOL; the slope branch and the clamp taken."""
+    blk, y, dy = _chain_inputs(N, C, dtype, seed=10 * N + C)
+    out = blk._plain(y)
+    want = torch.autograd.grad(out, [y, blk.norm_weight, blk.norm_bias], dy)
+    yv = y.detach().permute(0, 2, 3, 4, 1)
+    ct = torch.promote_types(dtype, torch.float32)
+    yf = yv.to(ct)
+    mean = yf.mean((1, 2, 3))
+    var = (yf * yf).mean((1, 2, 3)) - mean * mean
+    mul = torch.rsqrt(var.clamp_min(0.0) + tmodel.NORM_EPS) * blk.norm_weight.detach()
+    got = kernels.instance_norm_act_backward_reference(
+        yv, dy.permute(0, 2, 3, 4, 1), mean, var, mul, blk.norm_bias.detach(), blk.slope,
+        tmodel.NORM_EPS)
+    assert bool((out <= 0).any())  # the slope branch
+    dx_tol, ulp, param_tol = BACKWARD_TOL[dtype]
+    dx, ref = got[0].to(ct), want[0].permute(0, 2, 3, 4, 1).to(ct)
+    assert got[0].dtype == dtype and got[0].shape == yv.shape
+    scale = float(ref.abs().max())
+    assert bool(((dx - ref).abs() <= dx_tol * scale + ulp * ref.abs()).all())
+    for a, b in zip(got[1:], want[1:]):
+        assert float((a - b).abs().max()) <= param_tol * float(b.abs().max())
 
 
 # -------------------------------------------------------------- init
