@@ -38,9 +38,17 @@ sample i on its shard: the augmented batch is the unsharded one. A batch
 that the mesh size does not divide shards over the first gcd(B, n) shards
 (unsharded at a gcd of 1), with the JAX trainer's log line.
 
-A step's augmentation, forward and backward, and update, the prefetch's
-sampling and the loop's wait on it, the checkpoints and validation are
-spans ``train.*`` (``utils/profiling.span``).
+On a card no host-device transfer inside a step waits on the compute
+stream, so the host never waits for the card between two epoch ends.
+The prefetch thread copies each batch into pinned memory and uploads it on
+a copy stream of its own; the loop orders the batch on the compute stream
+by that copy's event before the step. The step's draws run on a side
+stream (``augment.draw_samples``): the host waits for their scalars alone.
+On the CPU the same code copies nothing and waits for nothing.
+
+A step's draws' wait, augmentation, forward and backward, and update, the
+prefetch's sampling and the loop's wait on it, the checkpoints and
+validation are spans ``train.*`` (``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -68,8 +76,8 @@ from deepwmh_tpu_torch.parallel.mesh import (
 from deepwmh_tpu_torch.unet.augment import (
     AugmentConfig,
     apply_augment,
-    augment_samples,
-    draw_augment,
+    apply_samples,
+    draw_samples,
 )
 from deepwmh_tpu_torch.unet.data import SegDataset
 from deepwmh_tpu_torch.unet.losses import (
@@ -146,6 +154,9 @@ class Trainer:
         self.trace = [torch.zeros_like(p) for p in self.params]
         # one replica a local shard, the home shard's being self.model
         self.replicas = None if mesh is None else replicate(mesh, self.model)
+        # a stream a local card for the batches' uploads
+        devices = [self.device] if mesh is None else [mesh.devices[d] for d in mesh.local_shards]
+        self._copy_streams = {d: torch.cuda.Stream(d) for d in devices if d.type == "cuda"}
         self.total_steps = cfg.epochs * cfg.batches_per_epoch
         self.history = []  # per epoch: {"epoch", "losses", "train_loss", "metric"}
 
@@ -213,19 +224,28 @@ class Trainer:
         per-shard lists (``None`` for another process's shard): every
         sample's values are drawn in sample order, sample i is augmented on
         its shard."""
+        return self._apply_augment(images, labels, self._draw(images, gen))
+
+    def _draw(self, images, gen: torch.Generator) -> list:
+        """The draws of every sample of the batch, in sample order
+        (``draw_samples``: on a card the host waits for their scalars
+        alone)."""
+        x = images if self.mesh is None else images[self.mesh.local_shards[0]]
+        n = x.shape[0] * (1 if self.mesh is None else self.mesh.size)
+        return draw_samples(gen, tuple(x.shape[1:]), n, self.cfg.aug)
+
+    def _apply_augment(self, images, labels, draws: list):
         if self.mesh is None:
-            return augment_samples(gen, images, labels, self.cfg.aug)
-        local = self.mesh.local_shards
-        rows = images[local[0]].shape[0]
-        shape = tuple(images[local[0]].shape[1:])
+            return apply_samples(images, labels, draws)
+        rows = len(draws) // self.mesh.size
         out_i, out_l = [None] * self.mesh.size, [None] * self.mesh.size
         for d in range(self.mesh.size):
-            draws = [draw_augment(gen, shape, self.cfg.aug) for _ in range(rows)]
             if images[d] is None:
-                continue  # another process's rows: their draws only advance gen
+                continue  # another process's rows: their draws only advanced gen
             dev = images[d].device
             outs = [apply_augment(images[d][r], labels[d][r], dataclasses.replace(
-                dr, noise=to_device(dr.noise, dev))) for r, dr in enumerate(draws)]
+                dr, noise=to_device(dr.noise, dev)))
+                for r, dr in enumerate(draws[d * rows:(d + 1) * rows])]
             out_i[d] = torch.stack([o[0] for o in outs])
             out_l[d] = torch.stack([o[1] for o in outs])
         return out_i, out_l
@@ -273,8 +293,9 @@ class Trainer:
         (detached, not synchronised). ``gen`` drives the augmentation
         (required when it is on)."""
         if self.cfg.augment:
+            draws = self._draw(images, gen)
             with span("train.augment"):
-                images, labels = self.augment(images, labels, gen)
+                images, labels = self._apply_augment(images, labels, draws)
         if self.mesh is not None:
             with span("train.forward_backward"):
                 loss, grads = self.mesh_loss_grads(images, labels)
@@ -306,19 +327,51 @@ class Trainer:
         return hard_dice_from_parts(psum(self.mesh, parts))
 
     def _to_device(self, images, labels):
-        """A host batch on the device; on a mesh, shard d's rows on its
-        device (``None`` for another process's shard)."""
+        """A host batch on the device, ready for the compute stream; on a
+        mesh, shard d's rows on its device (``None`` for another process's
+        shard)."""
+        return self._take(*self._upload(images, labels))
+
+    def _upload(self, images, labels):
+        """Starts a host batch's copy to the device (on a mesh, shard d's
+        rows to its device): (images, labels, copies), ``copies`` the
+        (tensor, event) of each copy to a card, for ``_take``. To a card an
+        array goes through pinned memory and is copied on the card's copy
+        stream, so the copy waits for no kernel and the host for no copy."""
+        copies = []
+
+        def put(a, dev):
+            if dev.type != "cuda":
+                return torch.from_numpy(a).to(dev)
+            stream = self._copy_streams[dev]
+            with torch.cuda.stream(stream):
+                t = torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+            copies.append((t, done))
+            return t
+
         if self.mesh is None:
-            return (torch.from_numpy(images).to(self.device),
-                    torch.from_numpy(labels).to(self.device))
+            return put(images, self.device), put(labels, self.device), copies
         n = self.mesh.size
         rows = images.shape[0] // n
         out_i, out_l = [None] * n, [None] * n
         for d in self.mesh.local_shards:
             dev = self.mesh.devices[d]
-            out_i[d] = torch.from_numpy(images[d * rows:(d + 1) * rows]).to(dev)
-            out_l[d] = torch.from_numpy(labels[d * rows:(d + 1) * rows]).to(dev)
-        return out_i, out_l
+            out_i[d] = put(images[d * rows:(d + 1) * rows], dev)
+            out_l[d] = put(labels[d * rows:(d + 1) * rows], dev)
+        return out_i, out_l, copies
+
+    @staticmethod
+    def _take(images, labels, copies):
+        """An uploaded batch ordered on each card's current stream: that
+        stream waits for the copies' events, and the tensors, allocated on
+        the copy stream, are recorded as used on it."""
+        for t, done in copies:
+            stream = torch.cuda.current_stream(t.device)
+            stream.wait_event(done)
+            t.record_stream(stream)
+        return images, labels
 
     # -- the loop ---------------------------------------------------------
 
@@ -344,12 +397,12 @@ class Trainer:
         noval_mode = cfg.noval or val_ds is None or len(val_ds) == 0
         writer = self.mesh is None or self.mesh.writer
 
-        # the next batch is sampled and copied while the step runs; one
-        # worker keeps np_rng's draws in the unprefetched order
+        # the next batch is sampled and its upload started while the step
+        # runs; one worker keeps np_rng's draws in the unprefetched order
         def next_batch():  # on the prefetch thread
             with span("train.sample"):
-                return self._to_device(*train_ds.sample_batch(np_rng, cfg.batch_size,
-                                                              cfg.oversample_fg))
+                return self._upload(*train_ds.sample_batch(np_rng, cfg.batch_size,
+                                                           cfg.oversample_fg))
 
         with ThreadPoolExecutor(max_workers=1) as prefetcher:
             for epoch in range(start_epoch, cfg.epochs):
@@ -359,7 +412,8 @@ class Trainer:
                 pending = prefetcher.submit(next_batch)
                 for b in range(cfg.batches_per_epoch):
                     with span("train.data_wait"):
-                        images, labels = pending.result()
+                        # ordered on the compute stream before the step sees it
+                        images, labels = self._take(*pending.result())
                     if b + 1 < cfg.batches_per_epoch:
                         pending = prefetcher.submit(next_batch)
                     lr = self.lr_at(epoch * cfg.batches_per_epoch + b)

@@ -5,7 +5,10 @@ and the 3 mm median on the card against the CPU, K1's backward kernels
 against their plain versions (the flagship train shapes and the narrow
 widths; the same bits twice), the model on K1 under autograd and the
 trainer's step launching K1 forward and backward a block (remat's
-recompute counted; remat on and off the same gradients), the serving burst
+recompute counted; remat on and off the same gradients), a warm train step
+on a batch from the loop's upload path with no synchronising transfer, the
+side-stream augmentation draws bit for bit against ``draw_augment``'s on the
+compute stream, the serving burst
 against one-case runs, K1 at the learned registration network's shapes
 (C = 8, 16, 32), registration's field gather on the card against the
 CPU, a tiny ``run_train`` on the card launching K1 and K2, the DICOM
@@ -372,6 +375,69 @@ def test_training_model_launches_no_k1(cuda, tmp_path):
         assert torch.isfinite(loss)
         assert launched == (forwards, forwards, backwards, backwards), (plan, launched)
         del tr
+
+
+def test_warm_train_step_waits_on_no_stream(cuda, tmp_path):
+    """After two warm steps, a third ``Trainer.train_step`` on a batch from
+    the loop's upload path (pinned memory, the copy stream, its event
+    ordering the batch on the compute stream) runs under
+    ``set_sync_debug_mode("error")`` and raises nothing: no transfer of the
+    step waits on a stream. Every augmentation branch is on, the spatial
+    warp's matrix and centre among them."""
+    import numpy as np
+
+    from deepwmh_tpu_torch.unet.augment import AugmentConfig
+    from deepwmh_tpu_torch.unet.data import SegDataset
+    from deepwmh_tpu_torch.unet.train import TrainConfig, Trainer
+
+    plan = _tiny_plan()
+    every = AugmentConfig(p_rotscale=1.0, p_noise=1.0, p_brightness=1.0, p_contrast=1.0,
+                          p_gamma=1.0, p_mirror=1.0)
+    tr = Trainer(plan, TrainConfig(epochs=1, batches_per_epoch=3, aug=every), str(tmp_path),
+                 device=cuda)
+    tr.init_state(0)
+    rng = np.random.RandomState(0)
+    ds = SegDataset(plan.patch_size)
+    for i in range(2):
+        ds.add_case("c%d" % i, rng.randn(20, 24, 18).astype(np.float32),
+                    (rng.rand(20, 24, 18) > 0.9).astype(np.uint8))
+    gen = torch.Generator(device=cuda).manual_seed(2**31 + 7)
+
+    def batch():
+        return tr._take(*tr._upload(*ds.sample_batch(rng, 2, 0.33)))
+
+    losses = [tr.train_step(*batch(), tr.lr_at(k), gen) for k in range(2)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        images, labels = batch()
+        assert images.dtype == torch.float32 and labels.dtype == torch.int32
+        losses.append(tr.train_step(images, labels, tr.lr_at(2), gen))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.isfinite(loss) for loss in losses)
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (128, 160, 128)])
+def test_side_stream_draws_are_draw_augments(cuda, shape):
+    """Two samples' draws on the draw stream (``draw_samples`` on a card)
+    equal ``draw_augment``'s on the compute stream from the same generator
+    state, scalars and noise fields bit for bit, and the generator ends in
+    the same state."""
+    import dataclasses
+
+    from deepwmh_tpu_torch.unet import augment
+
+    cfg = augment.AugmentConfig()
+    gen = torch.Generator(device=cuda).manual_seed(2**31 + 11)
+    start = gen.get_state()
+    got = augment.draw_samples(gen, shape, 2, cfg)
+    end = gen.get_state()
+    gen.set_state(start)
+    want = [augment.draw_augment(gen, shape, cfg) for _ in range(2)]
+    assert torch.equal(gen.get_state(), end)
+    for g, w in zip(got, want):
+        assert g.noise.device == w.noise.device and torch.equal(g.noise, w.noise)
+        assert dataclasses.replace(g, noise=None) == dataclasses.replace(w, noise=None)
 
 
 def _flagship_train_shapes():

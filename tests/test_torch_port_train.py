@@ -12,6 +12,7 @@ resumed from a JAX-written model_latest beside the JAX Trainer's run, and
 flax's initialiser distribution. The tolerance of each test is in it.
 """
 
+import dataclasses
 import json
 import os
 
@@ -265,6 +266,23 @@ def test_augment_draws_follow_the_config():
     assert all(0 <= d.noise_std <= cfg.noise_std_max for d in ds)
     again = augment.draw_augment(torch.Generator().manual_seed(0), (2, 2, 2), cfg)
     assert again.angles == ds[0].angles and torch.equal(again.noise, ds[0].noise)
+
+
+@pytest.mark.parametrize("shape", [(8, 10, 6), (24, 20, 4)])
+def test_step_draws_are_draw_augments(shape):
+    """The step's draw helper (``draw_samples``: a batch's draws, one host
+    transfer of their scalars) on a CPU generator gives ``draw_augment``'s
+    values sample after sample, the noise fields bit for bit, and leaves
+    the generator in the same state."""
+    cfg = augment.AugmentConfig()
+    gen, again = torch.Generator().manual_seed(11), torch.Generator().manual_seed(11)
+    got = augment.draw_samples(gen, shape, 3, cfg)
+    want = [augment.draw_augment(again, shape, cfg) for _ in range(3)]
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert g.noise.shape == shape and torch.equal(g.noise, w.noise)
+        assert dataclasses.replace(g, noise=None) == dataclasses.replace(w, noise=None)
+    assert torch.equal(gen.get_state(), again.get_state())
 
 
 def test_percentile_noise_matches_numpy_percentiles():
